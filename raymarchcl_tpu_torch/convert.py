@@ -1,0 +1,53 @@
+"""Carry render state in from numpy: options, volumes and MC tables.
+
+The JAX package and this port share no objects; tests and tools move state
+between them as numpy arrays and python scalars. These helpers build the
+port's values from such plain data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .options import DYNAMIC_FIELDS, RenderOpts, f32
+
+
+def opts_from_numpy(fields: dict) -> RenderOpts:
+    """RenderOpts from a dict of every field (numpy arrays, python scalars
+    or tuples), e.g. `{f.name: getattr(jax_opts, f.name) ...}` after
+    `np.asarray` of the array fields."""
+    kw = {}
+    for f in dataclasses.fields(RenderOpts):
+        v = fields[f.name]
+        if f.name in DYNAMIC_FIELDS:
+            kw[f.name] = f32(np.asarray(v))
+        elif f.name in ("resolution", "voxelRes"):
+            kw[f.name] = tuple(int(x) for x in v)
+        elif f.name in _FLOAT_TRIPLES:
+            kw[f.name] = tuple(float(x) for x in v)
+        elif f.name in ("aoStepDist", "voxelSize"):
+            kw[f.name] = float(v)
+        else:
+            kw[f.name] = int(v)
+    return RenderOpts(**kw)
+
+
+_FLOAT_TRIPLES = ("voxelBounds", "voxelBounds2", "voxelBoundsMin",
+                  "voxelBoundsMax", "invVoxelScale")
+
+
+def volume_from_numpy(vol, device="cpu") -> torch.Tensor:
+    """Flat uint8 voxel tensor (index z*rx*ry + y*rx + x) on `device`."""
+    arr = np.ascontiguousarray(np.asarray(vol, dtype=np.uint8).reshape(-1))
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def tables_from_numpy(tables, device="cpu") -> torch.Tensor:
+    """MC tables as float32 (P, T, 4) (or one (T, 4) table) on `device`."""
+    arr = np.ascontiguousarray(np.asarray(tables, dtype=np.float32))
+    if arr.ndim not in (2, 3) or arr.shape[-1] != 4:
+        raise ValueError(f"MC tables must be (T, 4) or (P, T, 4), got {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(device)

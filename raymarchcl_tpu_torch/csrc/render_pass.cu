@@ -1,0 +1,357 @@
+// K2: one spp pass of the renderer, one thread per pixel, blended in place
+// into accum.
+//
+// Replaces the per-pass jnp program of the JAX package (on the TPU it is XLA
+// code, with no Pallas source): sampling.init_render_state,
+// camera.camera_ray_lookat, march.raymarch with the smooth normal,
+// shade.shade_after_march (reflectIter == 0: ambient_occlusion, shadow,
+// light_combine, apply_atmosphere) and render.render_pass's blend. The
+// thread runs the reference's own per-ray loops (RenderImage,
+// renderer.cl:478-494; tests/scalar_ref.py), i.e. the semantics of the JAX
+// package's lane-parallel loops. Plain version: the functions of
+// raymarchcl_tpu_torch/ops named beside each device function here.
+//
+// Bound on the H100: dependent byte gathers from the volume (L2/HBM latency)
+// and warp divergence. A ray's march is a serial chain of loads whose
+// addresses depend on the previous step, and rays in one warp stop after
+// different numbers of sphere steps, march samples, AO probes and shadow
+// steps. The volume is read as raw uint8 through the read-only path (16.8 MB
+// at 256^3 fits the 50 MB L2); the MC table is read as one float4 per
+// lookup. This first kernel takes no further measures: 256-thread blocks, no
+// shared memory. The brick Chebyshev skip of the JAX package's accel is the
+// first candidate for cutting the gather chain.
+#include "rmcl_common.cuh"
+
+struct Scene {
+  const RmclParams& P;
+  const uint8_t* __restrict__ vol;
+  const float4* __restrict__ table;
+};
+
+// sampling.rand_float4
+__device__ __forceinline__ float4 rand_float4(const Scene& S, uint32_t seed) {
+  return __ldg(&S.table[seed & 0x3FFFu]);
+}
+
+// march.intersects_box: slab test with NaN-suppressing fminf/fmaxf
+__device__ float intersects_box(const RmclParams& P, V3f p, V3f d) {
+  const float pc[3] = {p.x, p.y, p.z};
+  const float dc[3] = {d.x, d.y, d.z};
+  float a = 0.0f, b = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float o1 = (P.bmin[c] - pc[c]) / dc[c];
+    float o2 = (P.bmax[c] - pc[c]) / dc[c];
+    a = fmaxf(a, fminf(o1, o2));
+    float hi = fmaxf(o1, o2);
+    b = (c == 0) ? hi : fminf(b, hi);
+  }
+  return b > a ? a : -1.0f;
+}
+
+// march.voxel_fetch: byte value, -1 outside the grid
+__device__ __forceinline__ int voxel_fetch(const Scene& S, int qx, int qy, int qz) {
+  const RmclParams& P = S.P;
+  if (qx < 0 || qx >= P.rx || qy < 0 || qy >= P.ry || qz < 0 || qz >= P.rz) return -1;
+  return (int)__ldg(&S.vol[qz * P.rxy + qy * P.rx + qx]);
+}
+
+// march.occupancy_i: v >= isoVal (the march's hit test is v > isoVal)
+__device__ __forceinline__ float occupancy(const Scene& S, int qx, int qy, int qz) {
+  int v = voxel_fetch(S, qx, qy, qz);
+  return (v >= 0 && v >= S.P.isoVal) ? 1.0f : 0.0f;
+}
+
+// march.voxel_material
+__device__ __forceinline__ float voxel_material(int v) {
+  return v < 84 ? 1.0f : (v < 168 ? 2.0f : 3.0f);
+}
+
+// march.voxel_normal_smooth: gradient sum over the occupied 3x3x3
+// neighbourhood (integer-valued, exact in any order), normalized
+__device__ V3f voxel_normal_smooth(const Scene& S, int qx, int qy, int qz) {
+  float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  for (int dz = -1; dz <= 1; ++dz)
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dx = -1; dx <= 1; ++dx) {
+        int cx = qx + dx, cy = qy + dy, cz = qz + dz;
+        if (occupancy(S, cx, cy, cz) > 0.0f) {
+          sx += occupancy(S, cx + 1, cy, cz) - occupancy(S, cx - 1, cy, cz);
+          sy += occupancy(S, cx, cy + 1, cz) - occupancy(S, cx, cy - 1, cz);
+          sz += occupancy(S, cx, cy, cz + 1) - occupancy(S, cx, cy, cz - 1);
+        }
+      }
+  return normalize3({-sx, -sy, -sz});
+}
+
+struct SceneDist {
+  float dist, mat, gd;
+  bool hit;
+  int qx, qy, qz;
+};
+
+// march.distance_to_scene with march.march_volume: ground plane U volume.
+// lim = min(steps, static cap, per-ray cap) samples of the fixed-step march.
+__device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float scale,
+                                       int lim, bool active, float idist,
+                                       bool want_material) {
+  const RmclParams& P = S.P;
+  SceneDist r;
+  float gd = rpos.y + P.groundY;
+  bool ground = gd < 1e5f;  // distUnion((gd, gd), (1e5, -1))
+  float res_d = ground ? gd : 1e5f;
+  float res_m = ground ? gd : -1.0f;
+  r.dist = res_d;
+  r.mat = res_m;
+  r.gd = gd;
+  r.hit = false;
+  r.qx = r.qy = r.qz = 0;
+  if (!(active && idist >= 0.0f && idist < res_d)) return r;
+
+  V3f delta = {rdir.x * scale * P.invS[0], rdir.y * scale * P.invS[1],
+               rdir.z * scale * P.invS[2]};
+  float adv = idist > 0.0f ? idist : 0.0f;
+  V3f p0 = {fmaf(rdir.x, adv, rpos.x + P.vb[0]) * P.invS[0],
+            fmaf(rdir.y, adv, rpos.y + P.vb[1]) * P.invS[1],
+            fmaf(rdir.z, adv, rpos.z + P.vb[2]) * P.invS[2]};
+  const float fx = (float)P.rx, fy = (float)P.ry, fz = (float)P.rz;
+  int v = -1, k = 0;
+  for (; k < lim; ++k) {
+    float kf = (float)k;
+    v = voxel_fetch(S, __float2int_rz(fmaf(delta.x, kf, p0.x) * fx),
+                    __float2int_rz(fmaf(delta.y, kf, p0.y) * fy),
+                    __float2int_rz(fmaf(delta.z, kf, p0.z) * fz));
+    if (v < 0 || v > P.isoVal) break;
+  }
+  if (k == lim || v < 0) return r;  // budget spent, or left the grid
+
+  float kf = (float)k;
+  V3f hp = fma3(delta, kf, p0);
+  r.qx = __float2int_rz(hp.x * fx);
+  r.qy = __float2int_rz(hp.y * fy);
+  r.qz = __float2int_rz(hp.z * fz);
+  V3f world = {hp.x * P.vb2[0] - P.vb[0], hp.y * P.vb2[1] - P.vb[1],
+               hp.z * P.vb2[2] - P.vb[2]};
+  float vdist = norm3(sub3(rpos, world)) - P.voxelSize;
+  float vmat = want_material ? voxel_material(voxel_fetch(S, r.qx, r.qy, r.qz)) : res_m;
+  bool take = vdist < res_d;  // distUnion(voxel, ground)
+  r.dist = take ? vdist : res_d;
+  r.mat = take ? vmat : res_m;
+  r.hit = true;
+  return r;
+}
+
+struct Isec {
+  V3f pos;
+  float dist;
+  int obj;
+  bool hit;
+  int qx, qy, qz;
+  float gd;
+};
+
+// march.raymarch: sphere trace of at most max_steps steps, miss rewrite.
+// truncate caps each march at the samples that can still land within
+// max_dist (shadow rays).
+__device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dist,
+                         int max_steps, bool active, bool truncate) {
+  const RmclParams& P = S.P;
+  float inv_steplen = 0.0f;
+  if (truncate) inv_steplen = 1.0f / (P.shadowBaseStep * fmaxf(norm3(ray_dir), 1e-20f));
+  Isec r;
+  float dist = P.startDist;
+  r.pos = ray_pos;
+  r.obj = 0;
+  r.hit = false;
+  r.qx = r.qy = r.qz = 0;
+  r.gd = 0.0f;
+  if (active) {
+    for (int s = 1; s <= max_steps; ++s) {
+      V3f p = fma3(ray_dir, dist, ray_pos);
+      float idist = intersects_box(P, p, ray_dir);
+      int lim = P.maxVoxelIter;
+      if (truncate) {
+        float cap = fmaf((max_dist - dist + P.eps) + P.voxelSize, inv_steplen, 3.0f);
+        lim = min(lim, __float2int_rz(fminf(fmaxf(cap, 0.0f), (float)P.maxVoxelIter)));
+      }
+      SceneDist sd = distance_to_scene(S, p, ray_dir, P.marchScale, lim, true, idist, true);
+      bool done = fabsf(sd.dist) <= P.eps || dist >= max_dist;
+      r.obj = __float2int_rz(sd.mat);
+      r.pos = p;
+      r.hit = sd.hit;
+      r.qx = sd.qx;
+      r.qy = sd.qy;
+      r.qz = sd.qz;
+      r.gd = sd.gd;
+      if (done) break;
+      dist = dist + sd.dist;
+    }
+  }
+  bool miss = dist >= max_dist;
+  if (miss) {
+    r.pos = fma3(ray_dir, dist, ray_pos);
+    r.obj = -1;
+    r.hit = false;
+  }
+  r.dist = miss ? 1000.0f : dist;
+  return r;
+}
+
+// shade.sky_gradient
+__device__ __forceinline__ V3f sky_gradient(const RmclParams& P, V3f d) {
+  float t = d.y * 0.5f + 0.5f;
+  return {P.sky1[0] + (P.sky2[0] - P.sky1[0]) * t, P.sky1[1] + (P.sky2[1] - P.sky1[1]) * t,
+          P.sky1[2] + (P.sky2[2] - P.sky1[2]) * t};
+}
+
+// shade.light_pos_jittered (lseed = sampling.light_seed)
+__device__ __forceinline__ V3f light_pos(const Scene& S, uint32_t lseed, int i) {
+  const RmclParams& P = S.P;
+  float4 j = rand_float4(S, lseed);
+  return {fmaf(j.x, P.lightScatter, P.lightPos[i][0]),
+          fmaf(j.y, P.lightScatter, P.lightPos[i][1]),
+          fmaf(j.z, P.lightScatter, P.lightPos[i][2])};
+}
+
+// shade.ambient_occlusion for one surface point
+__device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
+  const RmclParams& P = S.P;
+  float ao = 1.0f;
+  // sampling.ao_seed
+  uint32_t seed0 = f2u32(fmaf(pos.z, 2945.87f, fmaf(pos.x, 3183.75f, pos.y * 1831.42f)) +
+                         P.time * 2671.918f);
+  for (int i = 0; i <= P.aoIter && ao > 0.01f; ++i) {
+    float d = P.aoD[i];
+    float4 j = rand_float4(S, seed0 + 37u * (uint32_t)(i + 1));
+    V3f sn = normalize3({fmaf(j.x, 0.2f, n.x), fmaf(j.y, 0.2f, n.y), fmaf(j.z, 0.2f, n.z)});
+    V3f rp = fma3(sn, d, pos);
+    SceneDist sd = distance_to_scene(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
+                                     intersects_box(P, rp, sn), false);
+    ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp / d, 0.0f));
+  }
+  return ao;
+}
+
+// shade.blinn_phong_intensity
+__device__ __forceinline__ float blinn_phong(float smoothness, V3f ray_dir, V3f ldir, V3f n) {
+  float nh = dot3(normalize3(sub3(ldir, ray_dir)), n);
+  float spec_pow = exp2f(6.0f * smoothness + 4.0f);
+  float val = powf(fmaxf(nh, 0.0f), spec_pow) * (spec_pow + 2.0f) * 0.125f;
+  return nh > 0.0f ? val : 0.0f;
+}
+
+// shade.object_lighting: AO, per light light_geometry -> shadow ->
+// light_combine
+__device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f pos,
+                               int mat, V3f n, V3f reflect_col) {
+  const RmclParams& P = S.P;
+  V3f albedo = {P.matAlbedo[mat][0], P.matAlbedo[mat][1], P.matAlbedo[mat][2]};
+  float r0 = P.matR0[mat], smoothness = P.matSmooth[mat];
+  float ao = ambient_occlusion(S, pos, n);
+  V3f diff = mul3(sky_gradient(P, n), ao);
+  V3f spec = mul3(reflect_col, ao);
+  V3f fin = {0.0f, 0.0f, 0.0f};
+  // shade.schlick
+  float dd = fminf(fmaxf(1.0f - dot3(n, neg3(ray_dir)), 0.0f), 1.0f);
+  float d2 = dd * dd;
+  float fresnel = dd > 0.0f ? (1.0f - r0) * smoothness * d2 * d2 * dd + r0 : 0.0f;
+  for (int i = 0; i < P.numLights; ++i) {
+    // shade.light_geometry
+    V3f delta = sub3(light_pos(S, lseed, i), pos);
+    float dsq = dot3(delta, delta);
+    float att = 1.0f / dsq;
+    bool in_range = att > P.minLightAtt;
+    V3f ldir = normalize3(delta);
+    float lmax = fminf(sqrtf(dsq) - P.shadowBias, P.maxDist);
+    bool relevant = dot3(ldir, n) > 0.0f || dot3(normalize3(sub3(ldir, ray_dir)), n) > 0.0f;
+    // shade.shadow
+    Isec sh = raymarch(S, fma3(ldir, P.shadowBias, pos), ldir, lmax, P.shadowIter,
+                       in_range && relevant, true);
+    float sf = sh.dist >= lmax ? 1.0f : 0.0f;
+    // shade.light_combine
+    float gain = (in_range && sf > 0.0f) ? sf * att : 0.0f;
+    float di = fmaxf(dot3(ldir, n), 0.0f) * gain;
+    float si = blinn_phong(smoothness, ray_dir, ldir, n) * gain;
+    const float* lc = P.lightColor[i];
+    diff = {diff.x + lc[0] * di, diff.y + lc[1] * di, diff.z + lc[2] * di};
+    spec = {spec.x + lc[0] * si, spec.y + lc[1] * si, spec.z + lc[2] * si};
+    diff = mul3v(diff, albedo);  // QUIRK: per-light albedo (renderer.cl:376)
+    fin = add3(fin, add3(diff, mul3(sub3(spec, diff), fresnel)));
+  }
+  return mul3(fin, P.invNumLights);
+}
+
+// shade.apply_atmosphere: fog toward the sky + per-light flares
+__device__ V3f apply_atmosphere(const Scene& S, uint32_t lseed, V3f ray_pos, V3f ray_dir,
+                                float isec_dist, V3f col) {
+  const RmclParams& P = S.P;
+  float fa = 1.0f - expf(isec_dist * isec_dist * -P.fogPow);
+  col = add3(col, mul3(sub3(sky_gradient(P, ray_dir), col), fa));
+  for (int i = 0; i < P.numLights; ++i) {
+    V3f lp = light_pos(S, lseed, i);
+    float d = fminf(fmaxf(dot3(sub3(lp, ray_pos), ray_dir), 0.0f), isec_dist);
+    V3f closest = add3(sub3(ray_pos, lp), mul3(ray_dir, d));
+    float amp = P.flareAmp / dot3(closest, closest);
+    const float* lc = P.lightColor[i];
+    col = {col.x + lc[0] * amp, col.y + lc[1] * amp, col.z + lc[2] * amp};
+  }
+  return col;
+}
+
+__global__ void __launch_bounds__(256)
+render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
+                   const float4* __restrict__ table, float* __restrict__ accum, int n) {
+  int pid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pid >= n) return;
+  const Scene S{P, vol, table};
+
+  // sampling.init_render_state (renderer.cl:467-476)
+  float pix_x = (float)(pid % P.width), pix_y = (float)(pid / P.width);
+  float4 mp = rand_float4(S, (uint32_t)pid * 17u + f2u32(P.time * 3141.3862f));
+  float4 mn = rand_float4(S, (uint32_t)pid * 37u + f2u32(P.time * 1859.1467f));
+  V3f mc_normal = normalize3({mn.x, mn.y, mn.z});
+  float px = pix_x + mp.z, py = pix_y + mp.w;
+  V3f eye = {fmaf(mc_normal.z, P.dof, P.eyePos[0]), fmaf(mc_normal.x, P.dof, P.eyePos[1]),
+             fmaf(mc_normal.y, P.dof, P.eyePos[2])};
+
+  // camera.camera_ray_lookat
+  V3f forward = normalize3(
+      {P.targetPos[0] - eye.x, P.targetPos[1] - eye.y, P.targetPos[2] - eye.z});
+  V3f right = normalize3(cross3(forward, {P.up[0], P.up[1], P.up[2]}));
+  float vcx = px / (float)P.width * P.fov - P.fov * 0.5f;
+  float vcy = (py / (float)P.height * P.fov - P.fov * 0.5f) * (-P.invAspect);
+  V3f upv = cross3(right, forward);
+  V3f ray_dir = normalize3(add3(add3(mul3(right, vcx), mul3(upv, vcy)), forward));
+  V3f ray_pos = eye;
+
+  // shade.scene_color -> shade_after_march (reflectIter == 0)
+  Isec isec = raymarch(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
+  V3f normal = isec.hit ? voxel_normal_smooth(S, isec.qx, isec.qy, isec.qz)
+                        : (isec.gd < 1e5f ? V3f{0.0f, 1.0f, 0.0f} : neg3(ray_dir));
+  uint32_t lseed = f2u32(fmaf(px, 1957.0f, py * 2173.0f) + P.time * 4763.742f);
+  V3f col = sky_gradient(P, ray_dir);
+  if (isec.dist < P.maxDist) {
+    int mat = min(max(isec.obj, 0), 3);
+    float smoothness = P.matSmooth[mat];
+    // glossy perturbation, not re-normalized (renderer.cl:420)
+    V3f norm_p = fma3(mc_normal, 1.0f / (smoothness * 200.0f + 5.0f), normal);
+    V3f reflect_col = sky_gradient(P, reflect3(ray_dir, norm_p));
+    col = object_lighting(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
+  }
+  col = apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
+
+  // render.render_pass blend: accum + (col*exposure - accum) * frameBlend
+  float* a = accum + 3 * (size_t)pid;
+  a[0] = fmaf(col.x * P.exposure - a[0], P.frameBlend, a[0]);
+  a[1] = fmaf(col.y * P.exposure - a[1], P.frameBlend, a[1]);
+  a[2] = fmaf(col.z * P.exposure - a[2], P.frameBlend, a[2]);
+}
+
+extern "C" int rmcl_render_pass(const RmclParams* params, const uint8_t* vol, const float* table,
+                                float* accum, int n, cudaStream_t stream) {
+  if (n > 0) {
+    render_pass_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+        *params, vol, reinterpret_cast<const float4*>(table), accum, n);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,80 @@
+// Shared device code of the raymarchcl_tpu_torch kernels.
+//
+// Every function mirrors, op for op, its plain PyTorch counterpart in
+// raymarchcl_tpu_torch/ops (named beside each). The library is built with
+// --fmad=false, so a multiply-add is fused exactly where the code says
+// fmaf(), as ops/vecmath.py's fma() does on the plain side; division and
+// sqrt are IEEE-rounded (no fast math).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+// Options of one pass, filled by ops/kernels/render_pass.py (RmclParams there
+// lists the same fields in the same order). Derived constants are computed on
+// the host in float32 exactly as the plain version computes them.
+struct RmclParams {
+  int width, height;
+  int rx, ry, rz, rxy;
+  int maxIter, maxVoxelIter, shadowIter, aoIter, numLights, isoVal;
+  int aoSteps;               // maxVoxelIter / 2
+  int aoTrunc[16];           // shade.ao_trunc_steps per AO probe
+  float aoD[16];             // shade.ao_step_dist per AO probe
+  float marchScale;          // 1 / (maxVoxelIter * 0.5)
+  float aoScale;             // 1 / (aoSteps * 0.5)
+  float shadowBaseStep;      // (2 / maxVoxelIter) * min(invVoxelScale * voxelBounds2)
+  float invNumLights;        // 1 / numLights
+  float voxelSize;
+  float bmin[3], bmax[3], vb[3], vb2[3], invS[3];
+  float eyePos[3], targetPos[3], up[3], sky1[3], sky2[3];
+  float invAspect, time, fov, maxDist, startDist, eps, aoAmp, groundY;
+  float shadowBias, lightScatter, minLightAtt, exposure, dof, frameBlend;
+  float fogPow, flareAmp;
+  float lightPos[4][4], lightColor[4][4], matAlbedo[4][4], matR0[4], matSmooth[4];
+};
+
+struct V3f {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3f add3(V3f a, V3f b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3f sub3(V3f a, V3f b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3f mul3(V3f a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3f mul3v(V3f a, V3f b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3f neg3(V3f a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3f sel3(bool m, V3f a, V3f b) { return m ? a : b; }
+
+// vecmath.fma3: fma(a, s, c) per component
+__device__ __forceinline__ V3f fma3(V3f a, float s, V3f c) {
+  return {fmaf(a.x, s, c.x), fmaf(a.y, s, c.y), fmaf(a.z, s, c.z)};
+}
+
+// vecmath.dot: XLA:CPU's contraction of a.x*b.x + a.y*b.y + a.z*b.z
+__device__ __forceinline__ float dot3(V3f a, V3f b) {
+  return fmaf(a.z, b.z, fmaf(a.x, b.x, a.y * b.y));
+}
+
+__device__ __forceinline__ V3f cross3(V3f a, V3f b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+__device__ __forceinline__ float norm3(V3f a) { return sqrtf(dot3(a, a)); }
+
+// vecmath.normalize: 1/sqrt (not the approximate rsqrtf); 0 -> +y
+__device__ __forceinline__ V3f normalize3(V3f a) {
+  float n2 = dot3(a, a);
+  if (n2 > 1e-24f) {
+    float inv = 1.0f / sqrtf(n2);
+    return {a.x * inv, a.y * inv, a.z * inv};
+  }
+  return {0.0f, 1.0f, 0.0f};
+}
+
+// vecmath.reflect
+__device__ __forceinline__ V3f reflect3(V3f v, V3f n) {
+  return sub3(v, mul3(n, 2.0f * dot3(v, n)));
+}
+
+// sampling.f2u32: cvt.rzi.s32.f32 truncates, saturates and maps NaN to 0,
+// as XLA's float->int32 convert does
+__device__ __forceinline__ uint32_t f2u32(float x) { return (uint32_t)__float2int_rz(x); }

@@ -1,0 +1,105 @@
+"""Build of the port's CUDA kernels at first use, and their ctypes loader.
+
+`nvcc` compiles every source under raymarchcl_tpu_torch/csrc into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), under build/raymarchcl_tpu_torch/<hash of sources and
+flags>/ in the checkout. Nothing is built or imported when this module is
+imported; `library()` builds on its first call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "raymarchcl_tpu_torch")
+LIB_NAME = "librmcl_torch.so"
+
+# sm_90a (Hopper). --fmad=false: multiply-adds are fused only where the
+# sources call fmaf(), the sites where the plain version fuses too. No fast
+# math: exp2/pow/exp/sqrt and the divisions stay IEEE-accurate.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
+)
+
+_lib = None
+build_info = {}  # path, seconds, compiler log of the build this process loaded
+
+
+def _sources():
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin)")
+
+
+def build() -> str:
+    """Compile the library unless this exact source/flag set is built;
+    return its path. Raises RuntimeError with nvcc's output on failure."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    path = os.path.join(out_dir, LIB_NAME)
+    if os.path.isfile(path):
+        build_info.update(path=path, seconds=0.0, log="(cached)")
+        return path
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    build_info.update(path=path, seconds=time.perf_counter() - t0,
+                      log=proc.stdout + proc.stderr)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rmcl_tonemap_pack.argtypes = [vp, vp, ctypes.c_float, i32, vp]
+        lib.rmcl_tonemap_pack.restype = i32
+        lib.rmcl_render_pass.argtypes = [vp, vp, vp, vp, i32, vp]
+        lib.rmcl_render_pass.restype = i32
+        lib.rmcl_error_string.argtypes = [i32]
+        lib.rmcl_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (cudaGetLastError)."""
+    if rc != 0:
+        name = library().rmcl_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({name})")

@@ -56,6 +56,13 @@ def pytest_runtest_teardown(item):
         jax.clear_caches()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips inside the test without one)",
+    )
+
+
 _DIST_REPORTS = {}
 
 

@@ -1,0 +1,31 @@
+"""Import hygiene of the PyTorch port: no module of raymarchcl_tpu_torch
+imports jax or raymarchcl_tpu, and importing builds no kernel."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import raymarchcl_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "raymarchcl_tpu.")) or m == "raymarchcl_tpu")
+from raymarchcl_tpu_torch.ops.kernels import build
+print(json.dumps({"n": len(mods), "bad": bad, "loaded": build._lib is not None}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] >= 15, out.stdout  # every module was imported
+    assert res["bad"] == [], f"port imported {res['bad']}"
+    assert not res["loaded"]  # no kernel library loaded at import
