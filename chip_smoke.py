@@ -5,12 +5,16 @@
 
 Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc, checks
 each against its plain PyTorch version on the card, checks the `gyroid-ao`
-golden image, then drives the main path (gyroid 256^3, 512x512, 16 spp,
-`ao` preset, orbit camera at theta=135) through ops.render.render_image and
-times it. One line per phase; the second-to-last line is a JSON object with
-one entry per kernel, the last line the JSON result. Any failed check
-raises, so the script exits non-zero and prints no result. It needs a CUDA
-device and the repository beside it; it imports no JAX.
+golden image and the brick table of the 256^3 gyroid, shows that K2 over
+the brick table is bit-equal to K2 without it, then drives the two paths:
+the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
+theta=135, brick table on) through ops.render.render_image, timed with and
+without the brick table, and the primitive probes E1-E5 through
+raymarchcl_tpu_torch.scripts.bench_prims. One line per phase; the
+second-to-last line is a JSON object with one entry per kernel, the last
+line the JSON result. Any failed check raises, so the script exits non-zero
+and prints no result. It needs a CUDA device and the repository beside it;
+it imports no JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +29,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "gyroid-ao.png")
 TOL = dict(rtol=5e-3, atol=5e-3)  # per-pixel accum tolerance (tests/test_parity.py:51)
 MIN_PIXELS_OK = 0.995
+# Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s, and the
+# float32 rate outside the tensor cores, also taken for int32 operations.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# float32 operations of one march sample: the position fma per axis (2 each)
+# and the scale to voxels (1 each)
+OPS_PER_SAMPLE = 9
 GOLDEN_CASE = dict(width=64, height=48, iter=2, vres=48, mat="ao", theta=135, dist=2.25,
                    seed=7, maxIter=32, maxVoxelIter=64, shadowIter=32)
 
@@ -60,6 +71,78 @@ def accum_agreement(got, want):
             float((got - want).abs().max()))
 
 
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the operations over the f32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def touched(idx, depth, reps):
+    """Distinct (row, column) elements that `reps` consecutive rows from
+    each start idx[r, c] (mod depth) reach, each column c apart: what a
+    gather of table[(idx + j) % depth, c] for j < reps must read."""
+    import numpy as np
+
+    rows = (idx[:, :, None].astype(np.int64) + np.arange(reps)) % depth
+    cols = np.broadcast_to(np.arange(idx.shape[1])[None, :, None], rows.shape)
+    mask = np.zeros((depth, idx.shape[1]), bool)
+    mask[rows, cols] = True
+    return int(mask.sum())
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms,
+                 **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **extra}
+
+
+def check_accel(acc, vol_np, res, iso):
+    """The brick rows against a numpy recomputation: the STOP bits are
+    v > isoVal with the padding set, D is 0 exactly at bricks holding a STOP
+    bit and never exceeds the distance to the brick grid's boundary, the
+    last word is 0. Returns the count of bricks by D."""
+    import numpy as np
+
+    e = acc.edge
+    dist_w = e**3 // 32
+    rows = acc.rows.cpu().numpy().view(np.uint32)
+    rx, ry, rz = res
+    nbx, nby, nbz = -(-rx // e), -(-ry // e), -(-rz // e)
+    bits = np.unpackbits(np.ascontiguousarray(rows[:, :dist_w]).view(np.uint8), axis=1,
+                         bitorder="little").astype(bool)
+    stop = (bits.reshape(nbz, nby, nbx, e, e, e).transpose(0, 3, 1, 4, 2, 5)
+            .reshape(nbz * e, nby * e, nbx * e))
+    v = np.asarray(vol_np).reshape(rz, ry, rx)
+    require((stop[:rz, :ry, :rx] == (v > iso)).all(), "STOP bits != (v > isoVal)")
+    require(stop[rz:].all() and stop[:, ry:].all() and stop[:, :, rx:].all(),
+            "padding voxels not STOP")
+    d = rows[:, dist_w].reshape(nbz, nby, nbx)
+    brick_stop = stop.reshape(nbz, e, nby, e, nbx, e).any(axis=(1, 3, 5))
+    require(((d == 0) == brick_stop).all(), "D is not 0 exactly at bricks holding a STOP bit")
+    z, y, x = np.meshgrid(np.arange(nbz), np.arange(nby), np.arange(nbx), indexing="ij")
+    edge_d = np.minimum.reduce([z + 1, nbz - z, y + 1, nby - y, x + 1, nbx - x])
+    require((d <= edge_d).all(), "D exceeds the distance to the grid boundary")
+    require((rows[:, dist_w + 1] == 0).all(), "pad word not 0")
+    vals, counts = np.unique(d, return_counts=True)
+    return {int(a): int(b) for a, b in zip(vals, counts)}
+
+
+def timed_frames(render_mod, vol, opts, tables, acc, n=3):
+    """n frames of render_image on the host clock, each ending in a
+    synchronize. Returns (seconds per frame, last argb, last accum)."""
+    import torch
+
+    frames, argb, accum = [], None, None
+    for _ in range(n):
+        t0 = time.perf_counter()
+        argb, accum = render_mod.render_image(vol, opts, tables, accel=acc)
+        torch.cuda.synchronize()
+        frames.append(time.perf_counter() - t0)
+    return frames, argb, accum
+
+
 def main():
     import numpy as np
     import torch
@@ -71,13 +154,16 @@ def main():
     from raymarchcl_tpu_torch import api
     from raymarchcl_tpu_torch.convert import volume_from_numpy
     from raymarchcl_tpu_torch.io import imageio
+    from raymarchcl_tpu_torch.ops import accel as accel_mod
+    from raymarchcl_tpu_torch.ops import march
     from raymarchcl_tpu_torch.ops import render as render_mod
     from raymarchcl_tpu_torch.ops.camera import compute_eyepos
-    from raymarchcl_tpu_torch.ops.kernels import build
+    from raymarchcl_tpu_torch.ops.kernels import build, prims
     from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
     from raymarchcl_tpu_torch.ops.kernels import tonemap as k1
     from raymarchcl_tpu_torch.ops.sampling import make_mc_tables
     from raymarchcl_tpu_torch.options import render_options
+    from raymarchcl_tpu_torch.scripts import bench_prims
 
     dev = torch.device("cuda", 0)
     # -- 1. the card and the build ------------------------------------------
@@ -106,7 +192,7 @@ def main():
     torch.cuda.synchronize()
     k1_err = int((got.long() - want.long()).abs().max())
     require(torch.equal(got, want), "K1 tonemap_pack is not bit-equal to its plain version")
-    k1_ms = cuda_ms(lambda: k1.tonemap_pack(acc, gamma), 20)
+    k1_ms = bench_prims.kernel_ms(lambda: k1.tonemap_pack(acc, gamma), 50)
     k1_plain_ms = cuda_ms(lambda: k1.tonemap_pack_plain(acc, gamma), 20)
     log(f"K1 vs plain: bit-equal over {acc.shape[0]} px; 512^2 kernel {k1_ms:.4f} ms, "
         f"plain {k1_plain_ms:.4f} ms")
@@ -135,9 +221,9 @@ def main():
         return err
 
     g = {k: v for k, v in GOLDEN_CASE.items() if k not in ("theta", "dist", "seed")}
-    k2_case("gyroid-ao golden case 64x48 2spp vres48", g.pop("vres"), 7, **g)
-    k2_err = k2_case("128x128 2spp vres64 default budgets", 64, 0,
-                     width=128, height=128, iter=2, mat="ao")
+    k2_err = k2_case("gyroid-ao golden case 64x48 2spp vres48", g.pop("vres"), 7, **g)
+    k2_err = max(k2_err, k2_case("128x128 2spp vres64 default budgets", 64, 0,
+                     width=128, height=128, iter=2, mat="ao"))
 
     # -- 4. the golden image on the card --------------------------------------
     from PIL import Image
@@ -151,31 +237,69 @@ def main():
     log(f"golden gyroid-ao on cuda: mad {mad:.6f} (< 0.15), frac_off8 {off8:.6%} (< 0.5%)")
     require(mad < 0.15 and off8 < 0.005, "gyroid-ao golden thresholds missed")
 
-    # -- 5. the main path --------------------------------------------------------
+    # -- 5. the brick table of the main path's volume -----------------------
     t0 = time.perf_counter()
     vol_np, res = api.default_volume(256)
     vol = volume_from_numpy(vol_np, dev)
-    opts = render_options(width=512, height=512, vres=list(res), iter=16, mat="ao",
-                          eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
+    main_kw = dict(vres=list(res), mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
+                   targetpos=[0, -0.4, 0])
+    opts = render_options(width=512, height=512, iter=16, **main_kw)
     tables = make_mc_tables(16, seed=0, device=dev)
     torch.cuda.synchronize()
     log(f"main path setup: gyroid {res} ({vol.numel() / 1e6:.1f} MB uint8 on the card), "
         f"{opts.width}x{opts.height}, 16 spp, ao: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    bricks = accel_mod.build_accel(vol, res, opts.isoVal)
+    torch.cuda.synchronize()
+    t_accel = time.perf_counter() - t0
+    hist = check_accel(bricks, vol_np, res, opts.isoVal)
+    log(f"build_accel 256^3 edge {bricks.edge} on the host: {t_accel:.3f} s, rows "
+        f"{tuple(bricks.rows.shape)} ({bricks.rows.numel() * 4 / 2**20:.2f} MiB); STOP bits == "
+        f"numpy v > isoVal, D bounded by the grid boundary; bricks by D {hist}")
 
-    render_mod.render_image(vol, opts, tables)  # warm-up
+    # -- 6. K2 with the brick table vs K2 without it, and vs its plain version
+    for w in (128, 512):
+        o = render_options(width=w, height=w, iter=16, **main_kw)
+        a_raw = torch.zeros((o.num_pixels, 3), device=dev)
+        a_acc = torch.zeros_like(a_raw)
+        for p in range(2):
+            op = o.replace(time=torch.tensor(p * render_mod.TIME_STEP_INIT))
+            k2.render_pass(vol, op, tables[p], a_raw)
+            k2.render_pass(vol, op, tables[p], a_acc, bricks)
+        torch.cuda.synchronize()
+        require(torch.equal(a_acc, a_raw), f"K2 with the brick table differs at {w}^2")
+        log(f"K2 with vs without the brick table at {w}^2, 2 passes: bit-equal "
+            f"({o.num_pixels} px)")
+    o0 = opts.replace(time=torch.tensor(0.0))
+    zero = torch.zeros((opts.num_pixels, 3), device=dev)
+    acc_k = k2.render_pass(vol, o0, tables[0], zero.clone(), bricks)
+    acc_k_raw = k2.render_pass(vol, o0, tables[0], zero.clone())
+    plain = {}
+    for name, a in (("accel", bricks), ("raw", None)):
+        march.SAMPLES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_p = k2.render_pass_plain(vol, o0, tables[0], zero, a)
+        torch.cuda.synchronize()
+        plain[name] = dict(ms=(time.perf_counter() - t0) * 1e3, samples=march.SAMPLES,
+                           agree=accum_agreement(acc_k if a is not None else acc_k_raw, acc_p))
+        frac, exact, err = plain[name]["agree"]
+        log(f"K2 vs plain at 512^2 ({name}): {frac:.6f} of px within tolerance, "
+            f"{exact:.6f} bit-equal, max abs diff {err:.6g}; plain {plain[name]['ms']:.1f} ms, "
+            f"{march.SAMPLES} march samples read")
+        require(frac >= MIN_PIXELS_OK, f"K2 at 512^2 ({name}) agrees on {frac:.4%} < 99.5%")
+    k2_err = max(k2_err, plain["accel"]["agree"][2], plain["raw"]["agree"][2])
+
+    # -- 7. the main path, with the brick table; then without it -------------
+    render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
     torch.cuda.synchronize()
     k1.LAUNCHES = 0
     k2.LAUNCHES = 0
-    frames, accum, argb = [], None, None
-    for _ in range(3):
-        t0 = time.perf_counter()
-        argb, accum = render_mod.render_image(vol, opts, tables)
-        torch.cuda.synchronize()
-        frames.append(time.perf_counter() - t0)
+    frames, argb, accum = timed_frames(render_mod, vol, opts, tables, bricks)
     launches = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES}
     frame_s = sorted(frames)[1]
-    log(f"main path: frames {['%.4f' % f for f in frames]} s, median {frame_s:.4f} s; "
-        f"launches {launches}")
+    log(f"main path (brick table): frames {['%.4f' % f for f in frames]} s, median "
+        f"{frame_s:.4f} s; launches {launches}")
     require(launches == {"K1": 3, "K2": 48},
             f"expected 16 K2 + 1 K1 launches per frame over 3 frames, got {launches}")
     require(bool(torch.isfinite(accum).all()), "main path accum not finite")
@@ -183,37 +307,116 @@ def main():
     n_colors = len(np.unique(argb))
     log(f"main path image: {argb.shape}, {n_colors} distinct colours")
     require(n_colors > 100, f"main path image has only {n_colors} distinct colours")
+    render_mod.render_image(vol, opts, tables)  # warm-up
+    frames_raw, _, accum_raw = timed_frames(render_mod, vol, opts, tables, None)
+    frame_raw_s = sorted(frames_raw)[1]
+    require(torch.equal(accum, accum_raw), "main path frame differs without the brick table")
+    # K2 alone: the passes add into acc_k, whose values do not matter here
+    k2_ms = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k, bricks), 8)
+    k2_raw_ms = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k), 8)
+    k2_ms2 = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k, bricks), 8)
+    log(f"main path without the brick table: frames {['%.4f' % f for f in frames_raw]} s, "
+        f"median {frame_raw_s:.4f} s; bit-equal accum. K2 per pass at 512^2: "
+        f"{k2_ms:.4f} and {k2_ms2:.4f} ms with the brick table (before and after), "
+        f"{k2_raw_ms:.4f} ms without")
+    k2_ms = (k2_ms + k2_ms2) / 2
 
-    # one pass of K2 vs one of its plain version at the main path's shape
-    o0 = opts.replace(time=torch.tensor(0.0))
-    acc_k = torch.zeros((opts.num_pixels, 3), device=dev)
-    k2.render_pass(vol, o0, tables[0], acc_k)
-    torch.cuda.synchronize()
-    k2_ms = cuda_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k.zero_()), 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acc_p = k2.render_pass_plain(vol, o0, tables[0], torch.zeros_like(acc_k))
-    torch.cuda.synchronize()
-    k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    frac, exact, err512 = accum_agreement(acc_k, acc_p)
-    log(f"K2 one pass at 512^2: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.1f} ms; "
-        f"{frac:.6f} of px within tolerance, {exact:.6f} bit-equal, "
-        f"max abs diff {err512:.6g}")
-    require(frac >= MIN_PIXELS_OK, f"K2 at 512^2 agrees on {frac:.4%} < 99.5% of pixels")
+    # -- 8. the primitive probes E1-E5 through their entry point -------------
+    for name in prims.LAUNCHES:
+        prims.LAUNCHES[name] = 0
+    bench = bench_prims.run(dev, n=20, log=log)
+    e_launches = dict(prims.LAUNCHES)
+    require(all(v > 0 for v in e_launches.values()), f"a probe kernel never ran: {e_launches}")
+    x = bench_prims.inputs(dev)
+    e_err, e_plain_ms = {}, {}
+    calls = {
+        "E1": ("e1_row_fetch", (x["e1_table"], x["e1_sidx"])),
+        "E3": ("e3_probe", (x["e3_rows"], x["e3_w"], x["e3_b"])),
+        "E4": ("e4_transpose", (x["e4_x"],)),
+        "E5": ("e5_while", (x["e5_x_timed"],)),
+        **{f"E2/{d}": ("e2_gather", (x[f"e2_table_{d}"], x[f"e2_idx_{d}"]))
+           for d in prims.E2_DEPTHS},
+    }
+    for key, (fn, args) in calls.items():
+        got, want = getattr(prims, fn)(*args), getattr(prims, fn + "_plain")(*args)
+        got, want = (got, want) if key != "E5" else (torch.cat([got[0].reshape(-1), got[1]]),
+                                                     torch.cat([want[0].reshape(-1), want[1]]))
+        e_err[key] = int((got.long() - want.long()).abs().max())
+        require(e_err[key] == 0, f"{key} differs from its plain version")
+        e_plain_ms[key] = cuda_ms(lambda: getattr(prims, fn + "_plain")(*args), 3)
+    table, sidx = x["e1_table"], x["e1_sidx"]
+    e1_16 = bench_prims.kernel_ms(lambda: prims.e1_row_fetch(table, sidx, 16), 50)
+    e1_64 = bench_prims.kernel_ms(lambda: prims.e1_row_fetch(table, sidx, 64), 50)
+    log(f"E1 time by REPS_IN: 16 -> {e1_16 * 1e3:.2f} us, 64 -> {e1_64 * 1e3:.2f} us "
+        f"(x{e1_64 / e1_16:.2f})")
+    require(e1_64 > 1.5 * e1_16, "E1's rounds do not cost time: were they optimised away?")
+    last = (sidx.long() + prims.REPS_IN - 1) % prims.S
+    e1_lib_ms = bench_prims.kernel_ms(lambda: torch.index_select(table, 0, last), 50)
+    xt = x["e4_x"]
+    e4_lib = torch.empty(xt.shape[::-1], dtype=torch.int32, device=dev)
+    torch.mul(xt.t(), prims.REPS_IN, out=e4_lib)
+    require(torch.equal(e4_lib, prims.e4_transpose(xt)), "E4 differs from torch.mul(x.t(), 64)")
+    e4_lib_ms = bench_prims.kernel_ms(lambda: torch.mul(xt.t(), prims.REPS_IN, out=e4_lib), 50)
+    log(f"E1 library yardstick torch.index_select of the last round: {e1_lib_ms * 1e3:.2f} us; "
+        f"E4 torch.mul(x.t(), 64, out=(128, K)): {e4_lib_ms * 1e3:.2f} us; "
+        f"E0 torch.take loop {bench['E0']['us']:.1f} us")
 
+    # -- 9. the kernels line ---------------------------------------------------
+    n_px = opts.num_pixels
+    k1_bound = bound(n_px * 16, 0)
+    k2_bytes = (vol.numel() + tables[0].numel() * 4 + 2 * n_px * 12 + bricks.rows.numel() * 4)
+    k2_bound = bound(k2_bytes, plain["accel"]["samples"] * OPS_PER_SAMPLE)
+    k2_raw_bound = bound(k2_bytes - bricks.rows.numel() * 4, plain["raw"]["samples"] * OPS_PER_SAMPLE)
+    # E bounds: each table element the rounds touch counts once, at these inputs
+    reps, k, lanes = prims.REPS_IN, prims.K, prims.LANES
+    e1_rows = touched(x["e1_sidx"].cpu().numpy()[:, None], prims.S, reps)
+    e2_elems = {d: touched(x[f"e2_idx_{d}"].cpu().numpy(), d, reps) for d in prims.E2_DEPTHS}
+    e3_words = touched(x["e3_w"].cpu().numpy().reshape(1, -1), lanes,
+                       reps // prims.E3_U + prims.E3_U - 1)
+    trips = int(x["e5_x_timed"][:, 0].max())
+    e2_bound = {d: bound(e2_elems[d] * 4 + 2 * 8 * lanes * 4, reps * 8 * lanes)
+                for d in prims.E2_DEPTHS}
+    e_bounds = {
+        "E1": bound(e1_rows * lanes * 4 + k * 4 + k * lanes * 4, 0),
+        "E2": e2_bound[4096],
+        "E3": bound(e3_words * 4 + 3 * k * 4, reps * k * 4),
+        "E4": bound(2 * k * lanes * 4, reps * k * lanes),
+        "E5": bound(2 * 8 * lanes * 4 + 4, trips * 8),
+    }
+    log(f"E bounds count: E1 {e1_rows} of {prims.S} table rows, E2 {e2_elems} table "
+        f"elements by depth, E3 {e3_words} of {k * lanes} row words, E5 {trips} trips")
     kernels = [
-        {"name": "K1 tonemap_pack", "route": "cuda",
-         "source": "raymarchcl_tpu_torch/csrc/tonemap.cu",
-         "replaces": "raymarchcl_tpu/ops/kernels/tonemap_pallas.py:37",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "K2 render_pass", "route": "cuda",
-         "source": "raymarchcl_tpu_torch/csrc/render_pass.cu",
-         "replaces": "raymarchcl_tpu/ops/render.py:56",
-         "launches": launches["K2"], "max_abs_err": max(k2_err, err512),
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        kernel_entry("K1 tonemap_pack", "raymarchcl_tpu_torch/csrc/tonemap.cu",
+                     "raymarchcl_tpu/ops/kernels/tonemap_pallas.py:37", launches["K1"], k1_err,
+                     k1_ms, k1_plain_ms, k1_bound, None),
+        kernel_entry("K2 render_pass", "raymarchcl_tpu_torch/csrc/render_pass.cu",
+                     "raymarchcl_tpu/ops/render.py:56", launches["K2"], k2_err, k2_ms,
+                     plain["accel"]["ms"], k2_bound, None,
+                     ms_raw=k2_raw_ms, plain_ms_raw=plain["raw"]["ms"],
+                     bound_ms_raw=k2_raw_bound[0], samples=plain["accel"]["samples"],
+                     samples_raw=plain["raw"]["samples"]),
     ]
-    log(json.dumps({"kernels": kernels, "frame_s": frame_s, "card": card}))
+    srcs = {"E1": ("e1_row_fetch", 71), "E2": ("e2_sublane_gather", 107),
+            "E3": ("e3_probe", 136), "E4": ("e4_transpose", 174), "E5": ("e5_while", 199)}
+    for key, (fn, line) in srcs.items():
+        b = "E2/4096" if key == "E2" else key
+        extra = {}
+        if key == "E2":
+            extra = dict(ms_by_depth={d: bench[f"E2/{d}"]["us"] / 1e3 for d in prims.E2_DEPTHS},
+                         plain_ms_by_depth={d: e_plain_ms[f"E2/{d}"] for d in prims.E2_DEPTHS},
+                         bound_ms_by_depth={d: e2_bound[d][0] for d in prims.E2_DEPTHS})
+        if key == "E1":
+            extra = dict(ms_reps16=e1_16, ms_reps64=e1_64)
+        if key == "E5":
+            extra = dict(trips=trips)
+        kernels.append(kernel_entry(
+            f"{key} {fn}", "raymarchcl_tpu_torch/csrc/prims.cu",
+            f"scripts/bench_pallas_prims.py:{line}", e_launches[key],
+            max(v for k_, v in e_err.items() if k_.split("/")[0] == key),
+            bench[b]["us"] / 1e3, e_plain_ms[b], e_bounds[key],
+            {"E1": e1_lib_ms, "E4": e4_lib_ms}.get(key), **extra))
+    log(json.dumps({"kernels": kernels, "frame_s": frame_s, "frame_raw_s": frame_raw_s,
+                    "accel_build_s": t_accel, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Carry render state in from numpy: options, volumes and MC tables.
+"""Carry render state in from numpy: options, volumes, MC tables and brick
+tables.
 
 The JAX package and this port share no objects; tests and tools move state
 between them as numpy arrays and python scalars. These helpers build the
@@ -12,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.accel import Accel
 from .options import DYNAMIC_FIELDS, RenderOpts, f32
 
 
@@ -43,6 +45,13 @@ def volume_from_numpy(vol, device="cpu") -> torch.Tensor:
     """Flat uint8 voxel tensor (index z*rx*ry + y*rx + x) on `device`."""
     arr = np.ascontiguousarray(np.asarray(vol, dtype=np.uint8).reshape(-1))
     return torch.from_numpy(arr.copy()).to(device)
+
+
+def accel_from_numpy(rows, edge=8, device="cpu") -> Accel:
+    """Brick table from its (NB, edge^3/32 + 2) uint32 rows, e.g. the JAX
+    package's `Accel.rows` after `np.asarray`, on `device`."""
+    arr = np.ascontiguousarray(np.asarray(rows, dtype=np.uint32))
+    return Accel(torch.from_numpy(arr.view(np.int32).copy()).to(device), edge)
 
 
 def tables_from_numpy(tables, device="cpu") -> torch.Tensor:

@@ -17,15 +17,25 @@
 // different numbers of sphere steps, march samples, AO probes and shadow
 // steps. The volume is read as raw uint8 through the read-only path (16.8 MB
 // at 256^3 fits the 50 MB L2); the MC table is read as one float4 per
-// lookup. This first kernel takes no further measures: 256-thread blocks, no
-// shared memory. The brick Chebyshev skip of the JAX package's accel is the
-// first candidate for cutting the gather chain.
+// lookup. 256-thread blocks, no shared memory.
+//
+// The brick skip (ops/accel.py; the JAX package's accel= march) cuts the
+// chain in free space: given the brick table, each sample reads its brick's
+// Chebyshev distance word (again only when the brick changes) beside its
+// voxel byte, both loads in flight together, and where the distance licenses
+// a skip it jumps past the samples the table proves free. Sample positions
+// stay fmaf(delta, k, p0) of the index, so a skip lands on exactly the
+// sample the raw march reaches and no hit moves. The TPU staged whole brick
+// rows to pay one gather for many bit tests; here a sample that is not
+// skipped tests its voxel byte as the raw march does. The kernel is compiled
+// twice (with and without the table), so the raw march is unchanged.
 #include "rmcl_common.cuh"
 
 struct Scene {
   const RmclParams& P;
   const uint8_t* __restrict__ vol;
   const float4* __restrict__ table;
+  const int* __restrict__ rows;  // brick table (NB, rowWords) or null
 };
 
 // sampling.rand_float4
@@ -90,8 +100,41 @@ struct SceneDist {
   int qx, qy, qz;
 };
 
+// accel.skip_samples: samples a landing in a brick at distance D proves free
+__device__ __forceinline__ int skip_samples(const RmclParams& P, int dist, float inv_vps) {
+  float d_equiv = (float)P.edge * (float)dist - (float)(P.edge - 1);
+  float s = (d_equiv - 3.5f) * inv_vps;  // accel.SKIP_SLACK
+  return __float2int_rz(fminf(fmaxf(s, 0.0f), 1073741824.0f));  // clip to [0, 2^30]
+}
+
+// distance_to_scene's tail for a volume hit at sample k: the hit voxel, its
+// distance and material, and the union with the ground
+__device__ __forceinline__ SceneDist finish_hit(const Scene& S, SceneDist r, V3f rpos, V3f delta,
+                                               V3f p0, int k, float res_d, float res_m,
+                                               bool want_material) {
+  const RmclParams& P = S.P;
+  const float fx = (float)P.rx, fy = (float)P.ry, fz = (float)P.rz;
+  float kf = (float)k;
+  V3f hp = fma3(delta, kf, p0);
+  r.qx = __float2int_rz(hp.x * fx);
+  r.qy = __float2int_rz(hp.y * fy);
+  r.qz = __float2int_rz(hp.z * fz);
+  V3f world = {hp.x * P.vb2[0] - P.vb[0], hp.y * P.vb2[1] - P.vb[1],
+               hp.z * P.vb2[2] - P.vb[2]};
+  float vdist = norm3(sub3(rpos, world)) - P.voxelSize;
+  float vmat = want_material ? voxel_material(voxel_fetch(S, r.qx, r.qy, r.qz)) : res_m;
+  bool take = vdist < res_d;  // distUnion(voxel, ground)
+  r.dist = take ? vdist : res_d;
+  r.mat = take ? vmat : res_m;
+  r.hit = true;
+  return r;
+}
+
 // march.distance_to_scene with march.march_volume: ground plane U volume.
 // lim = min(steps, static cap, per-ray cap) samples of the fixed-step march.
+// kBricks: march over the brick table. The kernel is built both ways, so the
+// raw march runs exactly the code it ran before the table existed.
+template <bool kBricks>
 __device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float scale,
                                        int lim, bool active, float idist,
                                        bool want_material) {
@@ -115,30 +158,55 @@ __device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float
             fmaf(rdir.y, adv, rpos.y + P.vb[1]) * P.invS[1],
             fmaf(rdir.z, adv, rpos.z + P.vb[2]) * P.invS[2]};
   const float fx = (float)P.rx, fy = (float)P.ry, fz = (float)P.rz;
-  int v = -1, k = 0;
-  for (; k < lim; ++k) {
-    float kf = (float)k;
-    v = voxel_fetch(S, __float2int_rz(fmaf(delta.x, kf, p0.x) * fx),
-                    __float2int_rz(fmaf(delta.y, kf, p0.y) * fy),
-                    __float2int_rz(fmaf(delta.z, kf, p0.z) * fz));
-    if (v < 0 || v > P.isoVal) break;
+  int k = 0;
+  if constexpr (!kBricks) {
+    // one voxel byte per sample
+    int v = -1;
+    for (; k < lim; ++k) {
+      float kf = (float)k;
+      v = voxel_fetch(S, __float2int_rz(fmaf(delta.x, kf, p0.x) * fx),
+                      __float2int_rz(fmaf(delta.y, kf, p0.y) * fy),
+                      __float2int_rz(fmaf(delta.z, kf, p0.z) * fz));
+      if (v < 0 || v > P.isoVal) break;
+    }
+    if (k == lim || v < 0) return r;  // budget spent, or left the grid
+  } else {
+    // the brick's distance word (re-read when the brick changes) may skip
+    // the sample and the ones after it; else its voxel byte is tested
+    float vps = fmaxf(fabsf(delta.x) * fx, fmaxf(fabsf(delta.y) * fy, fabsf(delta.z) * fz));
+    float inv_vps = vps > 0.0f ? 1.0f / fmaxf(vps, 1e-30f) : 1e30f;  // skips_per_distance
+    bool hit = false;
+    int bid_d = -1, dist = 0;
+    while (k < lim) {
+      float kf = (float)k;
+      int qx = __float2int_rz(fmaf(delta.x, kf, p0.x) * fx);
+      int qy = __float2int_rz(fmaf(delta.y, kf, p0.y) * fy);
+      int qz = __float2int_rz(fmaf(delta.z, kf, p0.z) * fz);
+      if (qx < 0 || qx >= P.rx || qy < 0 || qy >= P.ry || qz < 0 || qz >= P.rz) break;
+      // the voxel's load is issued first, so the distance load overlaps it
+      int v = __ldg(&S.vol[qz * P.rxy + qy * P.rx + qx]);
+      int bid = ((qz >> P.brickShift) * P.nby + (qy >> P.brickShift)) * P.nbx +
+                (qx >> P.brickShift);
+      if (bid != bid_d) {
+        dist = __ldg(&S.rows[bid * P.rowWords + P.rowWords - 2]);
+        bid_d = bid;
+      }
+      if (dist >= 2) {  // D <= 1 never skips
+        int skip = skip_samples(P, dist, inv_vps);
+        if (skip > 0) {
+          k += 1 + skip;
+          continue;
+        }
+      }
+      if (v > P.isoVal) {
+        hit = true;
+        break;
+      }
+      ++k;
+    }
+    if (!hit) return r;  // budget spent, or left the grid
   }
-  if (k == lim || v < 0) return r;  // budget spent, or left the grid
-
-  float kf = (float)k;
-  V3f hp = fma3(delta, kf, p0);
-  r.qx = __float2int_rz(hp.x * fx);
-  r.qy = __float2int_rz(hp.y * fy);
-  r.qz = __float2int_rz(hp.z * fz);
-  V3f world = {hp.x * P.vb2[0] - P.vb[0], hp.y * P.vb2[1] - P.vb[1],
-               hp.z * P.vb2[2] - P.vb[2]};
-  float vdist = norm3(sub3(rpos, world)) - P.voxelSize;
-  float vmat = want_material ? voxel_material(voxel_fetch(S, r.qx, r.qy, r.qz)) : res_m;
-  bool take = vdist < res_d;  // distUnion(voxel, ground)
-  r.dist = take ? vdist : res_d;
-  r.mat = take ? vmat : res_m;
-  r.hit = true;
-  return r;
+  return finish_hit(S, r, rpos, delta, p0, k, res_d, res_m, want_material);
 }
 
 struct Isec {
@@ -153,6 +221,7 @@ struct Isec {
 // march.raymarch: sphere trace of at most max_steps steps, miss rewrite.
 // truncate caps each march at the samples that can still land within
 // max_dist (shadow rays).
+template <bool kBricks>
 __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dist,
                          int max_steps, bool active, bool truncate) {
   const RmclParams& P = S.P;
@@ -174,7 +243,7 @@ __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dis
         float cap = fmaf((max_dist - dist + P.eps) + P.voxelSize, inv_steplen, 3.0f);
         lim = min(lim, __float2int_rz(fminf(fmaxf(cap, 0.0f), (float)P.maxVoxelIter)));
       }
-      SceneDist sd = distance_to_scene(S, p, ray_dir, P.marchScale, lim, true, idist, true);
+      SceneDist sd = distance_to_scene<kBricks>(S, p, ray_dir, P.marchScale, lim, true, idist, true);
       bool done = fabsf(sd.dist) <= P.eps || dist >= max_dist;
       r.obj = __float2int_rz(sd.mat);
       r.pos = p;
@@ -214,6 +283,7 @@ __device__ __forceinline__ V3f light_pos(const Scene& S, uint32_t lseed, int i) 
 }
 
 // shade.ambient_occlusion for one surface point
+template <bool kBricks>
 __device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
   const RmclParams& P = S.P;
   float ao = 1.0f;
@@ -225,7 +295,7 @@ __device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
     float4 j = rand_float4(S, seed0 + 37u * (uint32_t)(i + 1));
     V3f sn = normalize3({fmaf(j.x, 0.2f, n.x), fmaf(j.y, 0.2f, n.y), fmaf(j.z, 0.2f, n.z)});
     V3f rp = fma3(sn, d, pos);
-    SceneDist sd = distance_to_scene(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
+    SceneDist sd = distance_to_scene<kBricks>(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
                                      intersects_box(P, rp, sn), false);
     ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp / d, 0.0f));
   }
@@ -242,12 +312,13 @@ __device__ __forceinline__ float blinn_phong(float smoothness, V3f ray_dir, V3f 
 
 // shade.object_lighting: AO, per light light_geometry -> shadow ->
 // light_combine
+template <bool kBricks>
 __device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f pos,
                                int mat, V3f n, V3f reflect_col) {
   const RmclParams& P = S.P;
   V3f albedo = {P.matAlbedo[mat][0], P.matAlbedo[mat][1], P.matAlbedo[mat][2]};
   float r0 = P.matR0[mat], smoothness = P.matSmooth[mat];
-  float ao = ambient_occlusion(S, pos, n);
+  float ao = ambient_occlusion<kBricks>(S, pos, n);
   V3f diff = mul3(sky_gradient(P, n), ao);
   V3f spec = mul3(reflect_col, ao);
   V3f fin = {0.0f, 0.0f, 0.0f};
@@ -265,7 +336,7 @@ __device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f 
     float lmax = fminf(sqrtf(dsq) - P.shadowBias, P.maxDist);
     bool relevant = dot3(ldir, n) > 0.0f || dot3(normalize3(sub3(ldir, ray_dir)), n) > 0.0f;
     // shade.shadow
-    Isec sh = raymarch(S, fma3(ldir, P.shadowBias, pos), ldir, lmax, P.shadowIter,
+    Isec sh = raymarch<kBricks>(S, fma3(ldir, P.shadowBias, pos), ldir, lmax, P.shadowIter,
                        in_range && relevant, true);
     float sf = sh.dist >= lmax ? 1.0f : 0.0f;
     // shade.light_combine
@@ -298,12 +369,14 @@ __device__ V3f apply_atmosphere(const Scene& S, uint32_t lseed, V3f ray_pos, V3f
   return col;
 }
 
+template <bool kBricks>
 __global__ void __launch_bounds__(256)
 render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
-                   const float4* __restrict__ table, float* __restrict__ accum, int n) {
+                   const float4* __restrict__ table, const int* __restrict__ rows,
+                   float* __restrict__ accum, int n) {
   int pid = blockIdx.x * blockDim.x + threadIdx.x;
   if (pid >= n) return;
-  const Scene S{P, vol, table};
+  const Scene S{P, vol, table, rows};
 
   // sampling.init_render_state (renderer.cl:467-476)
   float pix_x = (float)(pid % P.width), pix_y = (float)(pid / P.width);
@@ -325,7 +398,7 @@ render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restri
   V3f ray_pos = eye;
 
   // shade.scene_color -> shade_after_march (reflectIter == 0)
-  Isec isec = raymarch(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
+  Isec isec = raymarch<kBricks>(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
   V3f normal = isec.hit ? voxel_normal_smooth(S, isec.qx, isec.qy, isec.qz)
                         : (isec.gd < 1e5f ? V3f{0.0f, 1.0f, 0.0f} : neg3(ray_dir));
   uint32_t lseed = f2u32(fmaf(px, 1957.0f, py * 2173.0f) + P.time * 4763.742f);
@@ -336,7 +409,7 @@ render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restri
     // glossy perturbation, not re-normalized (renderer.cl:420)
     V3f norm_p = fma3(mc_normal, 1.0f / (smoothness * 200.0f + 5.0f), normal);
     V3f reflect_col = sky_gradient(P, reflect3(ray_dir, norm_p));
-    col = object_lighting(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
+    col = object_lighting<kBricks>(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
   }
   col = apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
 
@@ -347,11 +420,13 @@ render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restri
   a[2] = fmaf(col.z * P.exposure - a[2], P.frameBlend, a[2]);
 }
 
+// rows: the brick table, or null for the raw march
 extern "C" int rmcl_render_pass(const RmclParams* params, const uint8_t* vol, const float* table,
-                                float* accum, int n, cudaStream_t stream) {
+                                const int* rows, float* accum, int n, cudaStream_t stream) {
   if (n > 0) {
-    render_pass_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-        *params, vol, reinterpret_cast<const float4*>(table), accum, n);
+    auto kernel = rows ? render_pass_kernel<true> : render_pass_kernel<false>;
+    kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+        *params, vol, reinterpret_cast<const float4*>(table), rows, accum, n);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,7 @@ struct RmclParams {
   int width, height;
   int rx, ry, rz, rxy;
   int maxIter, maxVoxelIter, shadowIter, aoIter, numLights, isoVal;
+  int edge, brickShift, nbx, nby, rowWords;  // brick table (ops/accel.py); 0 without
   int aoSteps;               // maxVoxelIter / 2
   int aoTrunc[16];           // shade.ao_trunc_steps per AO probe
   float aoD[16];             // shade.ao_step_dist per AO probe

@@ -1,10 +1,11 @@
 """Build of the port's CUDA kernels at first use, and their ctypes loader.
 
-`nvcc` compiles every source under raymarchcl_tpu_torch/csrc into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), under build/raymarchcl_tpu_torch/<hash of sources and
-flags>/ in the checkout. Nothing is built or imported when this module is
-imported; `library()` builds on its first call.
+`nvcc` compiles every source under raymarchcl_tpu_torch/csrc, one process
+per `.cu` file, all started together, and links them into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), under build/raymarchcl_tpu_torch/<hash of sources and flags>/ in
+the checkout. Nothing is built or imported when this module is imported;
+`library()` builds on its first call.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ LIB_NAME = "librmcl_torch.so"
 # sources call fmaf(), the sites where the plain version fuses too. No fast
 # math: exp2/pow/exp/sqrt and the divisions stay IEEE-accurate.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
 
@@ -69,16 +70,29 @@ def build() -> str:
         return path
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objs, cmds = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        objs.append(os.path.join(out_dir, f"{os.path.basename(src)}.{os.getpid()}.o"))
+        cmds.append([nvcc, *NVCC_FLAGS, "-c", src, "-o", objs[-1]])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        procs.append(link)
+        logs.append(link.stdout)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, path)
-    build_info.update(path=path, seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+    build_info.update(path=path, seconds=time.perf_counter() - t0, log="".join(logs))
     return path
 
 
@@ -88,10 +102,18 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rmcl_tonemap_pack.argtypes = [vp, vp, ctypes.c_float, i32, vp]
-        lib.rmcl_tonemap_pack.restype = i32
-        lib.rmcl_render_pass.argtypes = [vp, vp, vp, vp, i32, vp]
-        lib.rmcl_render_pass.restype = i32
+        for name, args in (
+            ("rmcl_tonemap_pack", [vp, vp, ctypes.c_float, i32]),
+            ("rmcl_render_pass", [vp, vp, vp, vp, vp, i32]),
+            ("rmcl_e1_row_fetch", [vp, vp, vp, i32, i32, i32, i32]),
+            ("rmcl_e2_gather", [vp, vp, vp, i32, i32, i32, i32]),
+            ("rmcl_e3_probe", [vp, vp, vp, vp, i32, i32, i32, i32]),
+            ("rmcl_e4_transpose", [vp, vp, i32, i32, i32]),
+            ("rmcl_e5_while", [vp, vp, vp, i32, i32]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = args + [vp]  # ..., cudaStream_t
+            fn.restype = i32
         lib.rmcl_error_string.argtypes = [i32]
         lib.rmcl_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,7 +5,9 @@ On the TPU this pass is jnp code lowered by XLA (`raymarchcl_tpu/ops`:
 sampling, camera, march, shade and render.render_pass); there is no Pallas
 source. On the H100 it is one hand-written CUDA kernel with one thread per
 pixel, csrc/render_pass.cu, which notes what bounds it. Its plain version is
-`render_pass_plain`, built from this package's ops modules.
+`render_pass_plain`, built from this package's ops modules. Both march over
+the brick table (ops/accel.py) when one is given, with the same result as
+without it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..accel import Accel, brick_dims, row_words
 from ..camera import camera_ray_lookat
 from ..sampling import init_render_state
 from ..shade import REFLECTIONS_NOT_PORTED, ao_step_dist, ao_trunc_steps, scene_color
@@ -37,6 +40,7 @@ class RmclParams(ctypes.Structure):
         ("rx", _i), ("ry", _i), ("rz", _i), ("rxy", _i),
         ("maxIter", _i), ("maxVoxelIter", _i), ("shadowIter", _i), ("aoIter", _i),
         ("numLights", _i), ("isoVal", _i),
+        ("edge", _i), ("brickShift", _i), ("nbx", _i), ("nby", _i), ("rowWords", _i),
         ("aoSteps", _i), ("aoTrunc", _i * MAX_AO_PROBES), ("aoD", _f * MAX_AO_PROBES),
         ("marchScale", _f), ("aoScale", _f), ("shadowBaseStep", _f),
         ("invNumLights", _f), ("voxelSize", _f),
@@ -54,9 +58,10 @@ class RmclParams(ctypes.Structure):
     ]
 
 
-def make_params(opts) -> RmclParams:
+def make_params(opts, accel: Accel | None = None) -> RmclParams:
     """The kernel's parameter block; derived constants in float32 exactly
-    as the plain version computes them."""
+    as the plain version computes them. The brick fields stay 0 without a
+    brick table."""
     if opts.reflectIter > 0:
         raise NotImplementedError(REFLECTIONS_NOT_PORTED)
     if not 1 <= opts.numLights <= MAX_LIGHTS:
@@ -69,6 +74,10 @@ def make_params(opts) -> RmclParams:
     p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
     for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal"):
         setattr(p, k, getattr(opts, k))
+    if accel is not None:
+        p.edge, p.brickShift = accel.edge, accel.edge.bit_length() - 1
+        p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
+        p.rowWords = row_words(accel.edge)
     p.aoSteps = opts.maxVoxelIter // 2
     for i in range(opts.aoIter + 1):
         p.aoTrunc[i] = ao_trunc_steps(opts, p.aoSteps, i)
@@ -99,17 +108,17 @@ def make_params(opts) -> RmclParams:
     return p
 
 
-def render_pass_plain(vol, opts, table, accum) -> torch.Tensor:
+def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
     """Plain version: the pass's blended accum (a new tensor)."""
     ids = torch.arange(opts.num_pixels, device=accum.device)
     state = init_render_state(opts, table, ids)
     ray_pos, ray_dir = camera_ray_lookat(opts, state)
-    col = scene_color(vol, opts, table, state, ray_pos, ray_dir)
+    col = scene_color(vol, opts, table, state, ray_pos, ray_dir, accel)
     col_a = (col * opts.exposure).to_array()
     return fma(col_a - accum, opts.frameBlend, accum)
 
 
-def _check(vol, opts, table, accum):
+def _check(vol, opts, table, accum, accel):
     rx, ry, rz, _ = opts.voxelRes
     if vol.dtype != torch.uint8 or vol.shape != (rx * ry * rz,):
         raise ValueError(f"vol must be flat uint8 of {rx * ry * rz} voxels, got "
@@ -125,25 +134,35 @@ def _check(vol, opts, table, accum):
     if not vol.device == table.device == accum.device:
         raise ValueError(f"vol, table and accum on different devices: "
                          f"{vol.device}, {table.device}, {accum.device}")
+    if accel is not None:
+        nbx, nby, nbz = brick_dims(opts.voxelRes, accel.edge)
+        rows = accel.rows
+        if rows.shape[0] != nbx * nby * nbz:
+            raise ValueError(f"accel rows: {rows.shape[0]} bricks, the volume has "
+                             f"{nbx * nby * nbz} of edge {accel.edge}")
+        if not rows.is_contiguous() or rows.device != vol.device:
+            raise ValueError(f"accel rows must be contiguous on {vol.device}")
 
 
-def render_pass(vol, opts, table, accum) -> torch.Tensor:
-    """One pass blended into `accum` in place; returns accum. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or raise)."""
-    _check(vol, opts, table, accum)
+def render_pass(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
+    """One pass blended into `accum` in place; returns accum. `accel` is
+    the volume's brick table or None. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    _check(vol, opts, table, accum, accel)
     if accum.device.type == "cpu":
-        return accum.copy_(render_pass_plain(vol, opts, table, accum))
+        return accum.copy_(render_pass_plain(vol, opts, table, accum, accel))
     if accum.device.type != "cuda":
         raise ValueError(f"unsupported device {accum.device}")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     global LAUNCHES
-    params = make_params(opts)
+    params = make_params(opts, accel)
+    rows = None if accel is None else accel.rows.data_ptr()
     lib = build.library()
     with torch.cuda.device(accum.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rmcl_render_pass(ctypes.byref(params), vol.data_ptr(), table.data_ptr(),
-                                  accum.data_ptr(), opts.num_pixels, stream)
+                                  rows, accum.data_ptr(), opts.num_pixels, stream)
     build.check(rc, "rmcl_render_pass")
     LAUNCHES += 1
     return accum

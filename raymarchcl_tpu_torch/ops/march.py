@@ -1,12 +1,15 @@
 """Marcher, plain PyTorch: box intersection, voxel sampling, the fixed-step
 volume march, the sphere trace and the smooth voxel normal.
 
-Counterpart of the plain (accel=None) path of `raymarchcl_tpu/ops/march.py`
-(reference: renderer.cl:146-257). Rays are V3 triples of flat (N,) tensors.
-The per-ray semantics are the reference's loops; the lanes run them in lock
-step with masks, the march in chunks of MARCH_CHUNK samples, and every loop
-stops as soon as no lane is active. This module is the plain version of the
-CUDA render-pass kernel, which runs the same loops one thread per ray.
+Counterpart of `raymarchcl_tpu/ops/march.py` (reference:
+renderer.cl:146-257), with and without its brick table (ops/accel.py).
+Rays are V3 triples of flat (N,) tensors. The per-ray semantics are the
+reference's loops; the lanes run them in lock step with masks, the march in
+chunks of MARCH_CHUNK samples, and every loop stops as soon as no lane is
+active. The JAX package's flat state machine, substep grouping and ground
+batching are TPU scheduling that change no value and are not ported. This
+module is the plain version of the CUDA render-pass kernel, which runs the
+same loops one thread per ray.
 """
 
 from __future__ import annotations
@@ -14,10 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .accel import brick_dims, skip_samples, skips_per_distance
 from .vecmath import V3, f2i_sat, fma, fma3, norm, normalize, where3
 
 # Samples per lane per round of the fixed-step march.
 MARCH_CHUNK = 16
+
+# Sample positions the march has read since it was last set to 0: the
+# samples up to each lane's stop or budget, plus the brick march's skip
+# landings (the work count behind the render kernel's bound).
+SAMPLES = 0
 
 
 def dist_union(d1, m1, d2, m2):
@@ -101,17 +110,34 @@ def voxel_normal_smooth(vol, opts, q: V3) -> V3:
                         -(w * gz).sum((0, 1, 2))))
 
 
+def _samples_read(act, newly, first, kabs0, cap):
+    """Sample positions one chunk round of the march needs, summed over its
+    lanes: up to the first stop, else the samples below the budget."""
+    left = torch.clamp(cap - kabs0, 0, MARCH_CHUNK)
+    return int(torch.where(newly, first + 1, torch.where(act, left, 0)).sum())
+
+
 def march_volume(vol, opts, p0: V3, delta: V3, steps, active, max_k=None,
-                 max_k_dyn=None):
+                 max_k_dyn=None, accel=None):
     """Fixed-step march (renderer.cl:219-234): the first sample k in
     [0, steps) that leaves the grid (stop) or exceeds isoVal (hit), with
     sample k at p0 + delta*k. Samples k >= max_k (static) or >= max_k_dyn
     (per lane) count as not reached. Returns (hit bool, hit_k int64; 0 where
-    nothing stopped)."""
+    nothing stopped).
+
+    With a brick table (ops/accel.Accel) the march skips samples that the
+    table proves free, and tests the others against its STOP bits; hit and
+    hit_k are the raw march's, bit for bit."""
+    global SAMPLES
     eff = steps if max_k is None else min(steps, max_k)
+    if accel is not None:
+        return _march_volume_brick(opts, accel, p0, delta, eff, active, max_k_dyn)
     n = p0.x.shape[0]
     dev = p0.x.device
     iso = opts.isoVal
+    cap = torch.full((n,), eff, dtype=torch.long, device=dev)
+    if max_k_dyn is not None:
+        cap = torch.minimum(cap, max_k_dyn.long())
     ks = torch.arange(MARCH_CHUNK, device=dev)[:, None]  # (CH, 1)
     act = active.clone()
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -124,24 +150,84 @@ def march_volume(vol, opts, p0: V3, delta: V3, steps, active, max_k=None,
         p = V3(fma(delta.x[None], kf, p0.x[None]), fma(delta.y[None], kf, p0.y[None]),
                fma(delta.z[None], kf, p0.z[None]))
         v, _ = voxel_fetch(vol, opts, voxel_coord(opts, p))  # (CH, N)
-        valid_k = kabs < eff
-        if max_k_dyn is not None:
-            valid_k = valid_k & (kabs < max_k_dyn[None])
-        stop = ((v < 0) | (v > iso)) & valid_k
+        stop = ((v < 0) | (v > iso)) & (kabs < cap[None])
         any_stop = stop.any(0)
         first = stop.int().argmax(0)  # first True along the chunk
         v_first = v.gather(0, first[None])[0]
         newly = act & any_stop
+        SAMPLES += _samples_read(act, newly, first, k0, cap)
         hit = torch.where(newly, v_first > iso, hit)
         hit_k = torch.where(newly, k0 + first.long(), hit_k)
-        act = act & ~any_stop & (k0 + MARCH_CHUNK < eff)
-        if max_k_dyn is not None:
-            act = act & (k0 + MARCH_CHUNK < max_k_dyn)
+        act = act & ~any_stop & (k0 + MARCH_CHUNK < cap)
+    return hit, hit_k
+
+
+def _stop_bits(accel, opts, q: V3, valid):
+    """STOP bit of each in-grid voxel q from the brick rows (False outside
+    the grid)."""
+    e = accel.edge
+    shift, mask = e.bit_length() - 1, e - 1
+    nbx, nby, _ = brick_dims(opts.voxelRes, e)
+    bid = ((q.z >> shift) * nby + (q.y >> shift)) * nbx + (q.x >> shift)
+    local = ((q.z & mask) * e + (q.y & mask)) * e + (q.x & mask)
+    words = accel.rows.shape[1]
+    idx = torch.where(valid, bid * words + (local >> 5), 0)
+    word = accel.rows.reshape(-1)[idx].long()
+    return valid & (((word >> (local & 31)) & 1) == 1)
+
+
+def _march_volume_brick(opts, accel, p0: V3, delta: V3, eff, active, max_k_dyn):
+    """The fixed-step march over the brick table. Each round a lane lands on
+    its next sample k: in a brick at distance D whose skip is > 0 it moves
+    to k + 1 + skip (ops/accel.skip_samples), otherwise it tests samples
+    k .. k+MARCH_CHUNK-1 against the STOP bits like the raw march, and
+    stops at the first that leaves the grid or is set."""
+    global SAMPLES
+    n = p0.x.shape[0]
+    dev = p0.x.device
+    e = accel.edge
+    shift = e.bit_length() - 1
+    nbx, nby, _ = brick_dims(opts.voxelRes, e)
+    words = accel.rows.shape[1]
+    rows = accel.rows.reshape(-1)
+    inv_vps = skips_per_distance(opts, delta)
+    cap = torch.full((n,), eff, dtype=torch.long, device=dev)
+    if max_k_dyn is not None:
+        cap = torch.minimum(cap, max_k_dyn.long())
+    ks = torch.arange(MARCH_CHUNK, device=dev)[:, None]  # (CH, 1)
+    act = active & (cap > 0)
+    k = torch.zeros(n, dtype=torch.long, device=dev)
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit_k = torch.zeros(n, dtype=torch.long, device=dev)
+    while bool(act.any()):
+        kabs = k[None] + ks  # (CH, N); row 0 is the landing
+        p = fma3(V3(delta.x[None], delta.y[None], delta.z[None]), kabs.float(),
+                 V3(p0.x[None], p0.y[None], p0.z[None]))
+        q = voxel_coord(opts, p)
+        valid, _ = _bounds_and_index(opts, q)
+        # the landing's brick distance decides a skip
+        q0 = V3(q.x[0], q.y[0], q.z[0])
+        bid = ((q0.z >> shift) * nby + (q0.y >> shift)) * nbx + (q0.x >> shift)
+        dist = rows[torch.where(valid[0], bid * words + accel.dist_w, 0)]
+        skip = skip_samples(accel, dist, inv_vps)
+        jump = act & valid[0] & (skip > 0)
+        probe = act & ~jump
+        # the others test a chunk of samples like the raw march
+        bit = _stop_bits(accel, opts, q, valid)
+        stop = (~valid | bit) & (kabs < cap[None])
+        any_stop = stop.any(0)
+        first = stop.int().argmax(0)
+        newly = probe & any_stop
+        SAMPLES += int(jump.sum()) + _samples_read(probe, newly, first, k, cap)
+        hit = torch.where(newly, bit.gather(0, first[None])[0], hit)
+        hit_k = torch.where(newly, k + first.long(), hit_k)
+        k = torch.where(jump, k + 1 + skip, torch.where(probe, k + MARCH_CHUNK, k))
+        act = act & ~newly & (k < cap)
     return hit, hit_k
 
 
 def distance_to_scene(vol, opts, rpos: V3, rdir: V3, steps, active, idist=None,
-                      max_k=None, max_k_dyn=None, want_material=True):
+                      max_k=None, max_k_dyn=None, want_material=True, accel=None):
     """Scene distance = ground plane U voxel volume (renderer.cl:209-237).
 
     Returns dict dist, mat (ground quirk: its own distance), hit, q (hit
@@ -166,7 +252,7 @@ def distance_to_scene(vol, opts, rpos: V3, rdir: V3, steps, active, idist=None,
             fma(rdir.z, adv, rpos.z + vb[2]) * inv_s[2])
 
     hit, hit_k = march_volume(vol, opts, p0, delta, steps, march_mask,
-                              max_k=max_k, max_k_dyn=max_k_dyn)
+                              max_k=max_k, max_k_dyn=max_k_dyn, accel=accel)
     hit_p = fma3(delta, hit_k.float(), p0)
     q = voxel_coord(opts, hit_p)
     vb2 = opts.voxelBounds2
@@ -191,11 +277,12 @@ def isec_normal(vol, opts, hit, q, gd, rdir: V3):
 
 
 def raymarch(vol, opts, ray_pos: V3, ray_dir: V3, max_dist, max_steps, active,
-             want_normal=True, truncate_to_max_dist=False):
+             want_normal=True, truncate_to_max_dist=False, accel=None):
     """Sphere trace (renderer.cl:239-257): isec dict pos, distance,
     object_id (and the smooth normal when want_normal).
 
-    Each step re-marches the volume from the current position; a ray stops
+    Each step re-marches the volume from the current position (over the
+    brick table `accel` when given, with the same results); a ray stops
     when it converged (|d| <= eps), escaped (distance >= max_dist) or used
     max_steps steps. Misses rewrite to objectID -1 / distance 1000
     (renderer.cl:252-256).
@@ -233,7 +320,7 @@ def raymarch(vol, opts, ray_pos: V3, ray_dir: V3, max_dist, max_steps, active,
             lim = fma((remaining + opts.eps) + opts.voxelSize, inv_steplen, 3.0)
             mkd = f2i_sat(torch.clamp(lim, 0.0, float(opts.maxVoxelIter)))
         sd = distance_to_scene(vol, opts, p, ray_dir, opts.maxVoxelIter, act,
-                               idist=idist, max_k_dyn=mkd)
+                               idist=idist, max_k_dyn=mkd, accel=accel)
         done = (sd["dist"].abs() <= opts.eps) | (dist >= max_dist)
         steps = steps + act.long()
         obj = torch.where(act, f2i_sat(sd["mat"]), obj)

@@ -25,11 +25,11 @@ from .shade import REFLECTIONS_NOT_PORTED
 TIME_STEP_INIT = 0.333
 
 
-def render_accum(vol, opts, mc_tables, times, accum):
+def render_accum(vol, opts, mc_tables, times, accum, accel=None):
     """All spp passes in order (core.clj:83-90); pass p uses times[p] and
     mc_tables[p]. Updates accum in place and returns it."""
     for p in range(mc_tables.shape[0]):
-        render_pass(vol, opts.replace(time=times[p]), mc_tables[p], accum)
+        render_pass(vol, opts.replace(time=times[p]), mc_tables[p], accum, accel)
     return accum
 
 
@@ -38,12 +38,14 @@ def pack_argb(opts, accum):
     return k_tonemap.tonemap_pack(accum, opts.gamma)
 
 
-def render_image(vol, opts, mc_tables, times=None, accum=None):
+def render_image(vol, opts, mc_tables, times=None, accum=None, accel=None):
     """End-to-end frame: spp passes + tonemap.
 
     vol: flat uint8 (rx*ry*rz,); mc_tables: float32 (P, T, 4) on vol's
-    device. Returns (argb (H, W) uint32 numpy, accum (N, 3) float32 tensor).
-    `accum` may be passed back in to continue refining (core.clj:194-208).
+    device; accel: the volume's brick table (ops/accel.build_accel) or None,
+    the same image either way. Returns (argb (H, W) uint32 numpy, accum
+    (N, 3) float32 tensor). `accum` may be passed back in to continue
+    refining (core.clj:194-208).
     """
     if opts.reflectIter > 0:
         raise NotImplementedError(REFLECTIONS_NOT_PORTED)
@@ -52,7 +54,7 @@ def render_image(vol, opts, mc_tables, times=None, accum=None):
         times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
     if accum is None:
         accum = torch.zeros((opts.num_pixels, 3), dtype=torch.float32, device=vol.device)
-    accum = render_accum(vol, opts, mc_tables, times, accum)
+    accum = render_accum(vol, opts, mc_tables, times, accum, accel)
     argb = pack_argb(opts, accum)
     w, h = opts.resolution
     return argb.cpu().numpy().view(np.uint32).reshape(h, w), accum

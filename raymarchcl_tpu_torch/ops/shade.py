@@ -55,10 +55,10 @@ def apply_atmosphere(opts, table, px, py, ray_pos: V3, ray_dir: V3, isec_dist,
     return col
 
 
-def shadow(vol, opts, p: V3, ldir: V3, light_max_dist, active):
+def shadow(vol, opts, p: V3, ldir: V3, light_max_dist, active, accel=None):
     """Hard shadow: a re-raymarch toward the light, 0/1 (renderer.cl:292-301)."""
     isec = raymarch(vol, opts, p, ldir, light_max_dist, opts.shadowIter, active,
-                    want_normal=False, truncate_to_max_dist=True)
+                    want_normal=False, truncate_to_max_dist=True, accel=accel)
     return (isec["distance"] >= light_max_dist).float()
 
 
@@ -100,7 +100,7 @@ def ao_step_dist(opts, i):
     return np.float32(opts.aoStepDist) * np.float32(i + 1)
 
 
-def ambient_occlusion(vol, opts, table, pos: V3, normal: V3, active):
+def ambient_occlusion(vol, opts, table, pos: V3, normal: V3, active, accel=None):
     """Monte-Carlo AO: aoIter+1 scene probes along scatter-jittered normals
     with half the voxel budget, while ao > 0.01 (renderer.cl:327-346)."""
     ao = torch.ones_like(pos.x)
@@ -117,7 +117,7 @@ def ambient_occlusion(vol, opts, table, pos: V3, normal: V3, active):
                           fma(j.z, 0.2, normal.z)))
         sd = distance_to_scene(vol, opts, fma3(sn, d, pos), sn, steps, act,
                                max_k=ao_trunc_steps(opts, steps, i),
-                               want_material=False)
+                               want_material=False, accel=accel)
         ao_new = ao * (1.0 - torch.clamp((d - sd["dist"]) * opts.aoAmp / d, min=0.0))
         ao = torch.where(act, ao_new, ao)
     return ao
@@ -175,27 +175,29 @@ def light_combine(opts, ray_dir: V3, normal: V3, albedo, r0, smoothness,
 
 
 def object_lighting(vol, opts, table, px, py, ray_dir: V3, isec_pos: V3, mat_idx,
-                    normal: V3, reflect_col: V3, active):
+                    normal: V3, reflect_col: V3, active, accel=None):
     """Direct lighting of a surface point (renderer.cl:348-381)."""
     albedo, r0, smoothness = mat_gather(opts, mat_idx)
     lt = light_geometry(opts, table, px, py, isec_pos, ray_dir, normal, active)
-    ao = ambient_occlusion(vol, opts, table, isec_pos, normal, active)
-    sfs = [shadow(vol, opts, l["origin"], l["ldir"], l["lmax"], l["act"]) for l in lt]
+    ao = ambient_occlusion(vol, opts, table, isec_pos, normal, active, accel)
+    sfs = [shadow(vol, opts, l["origin"], l["ldir"], l["lmax"], l["act"], accel)
+           for l in lt]
     return light_combine(opts, ray_dir, normal, albedo, r0, smoothness,
                          reflect_col, ao, lt, sfs)
 
 
-def scene_color(vol, opts, table, state, ray_pos: V3, ray_dir: V3) -> V3:
+def scene_color(vol, opts, table, state, ray_pos: V3, ray_dir: V3, accel=None) -> V3:
     """Primary shading (renderer.cl:407-446): smooth-normal raymarch, then
-    shade_after_march."""
+    shade_after_march. Every march takes the brick table `accel` when given."""
     active = torch.ones(ray_pos.x.shape, dtype=torch.bool, device=ray_pos.x.device)
-    isec = raymarch(vol, opts, ray_pos, ray_dir, opts.maxDist, opts.maxIter, active)
+    isec = raymarch(vol, opts, ray_pos, ray_dir, opts.maxDist, opts.maxIter, active,
+                    accel=accel)
     return shade_after_march(vol, opts, table, state["px"], state["py"],
-                             state["mc_normal"], ray_pos, ray_dir, isec)
+                             state["mc_normal"], ray_pos, ray_dir, isec, accel)
 
 
 def shade_after_march(vol, opts, table, px, py, mc_normal: V3, ray_pos: V3,
-                      ray_dir: V3, isec) -> V3:
+                      ray_dir: V3, isec, accel=None) -> V3:
     """Everything in sceneColor after the primary raymarch
     (renderer.cl:414-445) for presets without reflections: glossy normal,
     sky reflection, lighting, atmosphere."""
@@ -209,7 +211,7 @@ def shade_after_march(vol, opts, table, px, py, mc_normal: V3, ray_pos: V3,
     norm_p = fma3(mc_normal, 1.0 / (smoothness * 200.0 + 5.0), isec["normal"])
     reflect_col = sky_gradient(opts, reflect(ray_dir, norm_p))
     lit = object_lighting(vol, opts, table, px, py, ray_dir, isec["pos"], mat_idx,
-                          norm_p, reflect_col, hit)
+                          norm_p, reflect_col, hit, accel)
     col = where3(hit, lit, sky)
     return apply_atmosphere(opts, table, px, py, ray_pos, ray_dir,
                             isec["distance"], col)

@@ -19,7 +19,7 @@ from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops.kernels.tonemap_pallas import tonemap_pack_pallas
 from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.models import generators
-from raymarchcl_tpu_torch.ops import sampling
+from raymarchcl_tpu_torch.ops import accel, sampling
 from raymarchcl_tpu_torch.ops import shade
 from raymarchcl_tpu_torch.ops.camera import compute_eyepos
 from raymarchcl_tpu_torch.ops.kernels import build
@@ -99,6 +99,15 @@ def test_k2_wrapper_checks(small_scene):
         k2.render_pass(vol, opts, table, acc.double())
     with pytest.raises(NotImplementedError):
         k2.render_pass(vol, opts.replace(reflectIter=1), table, acc)
+    bricks = accel.build_accel(vol, opts.voxelRes, opts.isoVal)
+    with pytest.raises(ValueError, match="accel rows"):
+        k2.render_pass(vol, opts, table, acc, accel.Accel(bricks.rows[:-1], 8))
+    with pytest.raises(ValueError, match="accel rows"):
+        k2.render_pass(vol, opts, table, acc, accel.Accel(bricks.rows.t().contiguous().t(), 8))
+    with pytest.raises(ValueError, match="brick rows"):
+        accel.Accel(bricks.rows.long(), 8)
+    with pytest.raises(ValueError, match="brick rows"):
+        accel.Accel(bricks.rows, 4)
 
 
 def _c_struct_fields():
@@ -146,6 +155,10 @@ def test_params_values(small_scene):
         assert p.aoD[i] == float(shade.ao_step_dist(opts, i))
     assert p.marchScale == float(np.float32(1 / 32)) and p.invNumLights == 1.0
     assert list(p.lightColor[0]) == [50.0, 50.0, 50.0, 0.0]
+    assert (p.edge, p.brickShift, p.nbx, p.nby, p.rowWords) == (0, 0, 0, 0, 0)
+    bricks = accel.build_accel(np.zeros(32 * 32 * 96, np.uint8), opts.voxelRes, 32, edge=16)
+    p = k2.make_params(opts, bricks)
+    assert (p.edge, p.brickShift, p.nbx, p.nby, p.rowWords) == (16, 4, 2, 2, 130)
     with pytest.raises(ValueError):
         k2.make_params(opts.replace(aoIter=16))
 
@@ -160,4 +173,4 @@ def test_build_reports_nvcc_failure(tmp_path, monkeypatch):
         build.build()
     assert len(build.source_hash()) == 16
     assert {os.path.basename(s) for s in build._sources()} >= {
-        "tonemap.cu", "render_pass.cu", "rmcl_common.cuh"}
+        "tonemap.cu", "render_pass.cu", "prims.cu", "rmcl_common.cuh"}

@@ -115,11 +115,11 @@ def test_golden_ao(name):
     if cfg.pop("volume", None) == "terrain":
         vres = cfg.pop("vres")
         argb, _ = api.render_frame(
-            generators.make_terrain({"vres": [vres] * 3}), (vres,) * 3, seed=7,
+            generators.make_terrain({"vres": [vres] * 3}), (vres,) * 3, seed=7, device="cpu",
             eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0], **cfg)
     else:
         argb = api.test_render(theta=135, dist=2.25, out_path=None, seed=7, verbose=False,
-                               **cfg)
+                               device="cpu", **cfg)
     from PIL import Image
 
     path = os.path.join(os.path.dirname(__file__), "goldens", f"{name}.png")
@@ -136,7 +136,23 @@ def test_reflections_raise(vol):
     with pytest.raises(NotImplementedError, match="reflections are not ported yet"):
         t_render.render_image(volume_from_numpy(vol), opts, tables)
     with pytest.raises(NotImplementedError):
-        api.render_frame(vol, VRES, width=8, height=6, mat="orange-stripes")
+        api.render_frame(vol, VRES, width=8, height=6, mat="orange-stripes", device="cpu")
+
+
+def test_entry_points_default_to_cuda(vol, monkeypatch):
+    """render_frame and test_render render on the card unless given
+    device='cpu': with no card they raise, and never fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.render_frame(vol, VRES, width=8, height=6, mat="ao")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.test_render(width=8, height=6, vres=8, mat="ao", out_path=None, verbose=False)
+    argb, acc = api.render_frame(vol, VRES, width=8, height=6, mat="ao", device="cpu",
+                                 maxIter=16, maxVoxelIter=32, shadowIter=16)
+    raw, acc_raw = api.render_frame(vol, VRES, width=8, height=6, mat="ao", device="cpu",
+                                    accel=False, maxIter=16, maxVoxelIter=32, shadowIter=16)
+    assert acc.device.type == "cpu" and torch.equal(acc, acc_raw)
+    np.testing.assert_array_equal(argb, raw)
 
 
 def test_accumulation_is_sequential_blend(vol):
