@@ -6,19 +6,22 @@
 Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc, checks
 each against its plain PyTorch version on the card, checks the `gyroid-ao`
 golden image and the brick table of the 256^3 gyroid, shows that K2 over
-the brick table is bit-equal to K2 without it, then drives the two paths:
-the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
-theta=135, brick table on) through ops.render.render_image, timed with and
-without the brick table, and the primitive probes E1-E5 through
-raymarchcl_tpu_torch.scripts.bench_prims. One line per phase; the
-second-to-last line is a JSON object with one entry per kernel, the last
-line the JSON result. Any failed check raises, so the script exits non-zero
-and prints no result. It needs a CUDA device and the repository beside it;
-it imports no JAX.
+the brick table is bit-equal to K2 without it and that one K2 launch of a
+frame's 16 passes is bit-equal to 16 one-pass launches, then drives the two
+paths: the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit
+camera at theta=135, brick table on; one K2 and one K1 launch a frame)
+through ops.render.render_image, timed with and without the brick table,
+and the primitive probes E1-E5 through raymarchcl_tpu_torch.scripts.
+bench_prims. K2's counting build gives the march samples of its bound and
+its loops' active-lane shares. One line per phase; the second-to-last line
+is a JSON object with one entry per kernel, the last line the JSON result.
+Any failed check raises, so the script exits non-zero and prints no result.
+It needs a CUDA device and the repository beside it; it imports no JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -290,6 +293,34 @@ def main():
         require(frac >= MIN_PIXELS_OK, f"K2 at 512^2 ({name}) agrees on {frac:.4%} < 99.5%")
     k2_err = max(k2_err, plain["accel"]["agree"][2], plain["raw"]["agree"][2])
 
+    # -- 6b. one launch of a frame's 16 passes vs 16 one-pass launches ------
+    times = torch.arange(16, dtype=torch.float32) * render_mod.TIME_STEP_INIT
+    a_frame = k2.render_passes(vol, opts, tables, times, zero.clone(), bricks)
+    a_single = zero.clone()
+    for p in range(16):
+        k2.render_pass(vol, opts.replace(time=times[p]), tables[p], a_single, bricks)
+    torch.cuda.synchronize()
+    require(torch.equal(a_frame, a_single), "16-pass launch differs from 16 one-pass launches")
+    log(f"K2 one launch of 16 passes vs 16 one-pass launches at 512^2: bit-equal "
+        f"({opts.num_pixels} px)")
+    march.SAMPLES = 0
+    t0 = time.perf_counter()
+    a_plain = zero.clone()
+    for p in range(16):
+        a_plain = k2.render_pass_plain(vol, opts.replace(time=times[p]), tables[p], a_plain,
+                                       bricks)
+    torch.cuda.synchronize()
+    plain_frame_ms = (time.perf_counter() - t0) * 1e3
+    frac, exact, err = accum_agreement(a_frame, a_plain)
+    k2_err = max(k2_err, err)
+    log(f"K2 frame vs plain frame at 512^2, 16 passes: {frac:.6f} of px within tolerance, "
+        f"{exact:.6f} bit-equal, max abs diff {err:.6g}; plain {plain_frame_ms:.1f} ms, "
+        f"{march.SAMPLES} march samples read")
+    require(frac >= MIN_PIXELS_OK, f"K2 frame at 512^2 agrees on {frac:.4%} < 99.5%")
+    k2_lanes = k2.count_lanes(vol, opts, tables, times, zero.clone(), bricks)
+    log(f"K2 counting build, one frame: {k2_lanes['samples']} march samples; active-lane "
+        "share " + ", ".join(f"{n} {k2_lanes[n]['active']:.4f}" for n in k2.COUNTED_LOOPS))
+
     # -- 7. the main path, with the brick table; then without it -------------
     render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
     torch.cuda.synchronize()
@@ -298,10 +329,12 @@ def main():
     frames, argb, accum = timed_frames(render_mod, vol, opts, tables, bricks)
     launches = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES}
     frame_s = sorted(frames)[1]
+    digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
     log(f"main path (brick table): frames {['%.4f' % f for f in frames]} s, median "
-        f"{frame_s:.4f} s; launches {launches}")
-    require(launches == {"K1": 3, "K2": 48},
-            f"expected 16 K2 + 1 K1 launches per frame over 3 frames, got {launches}")
+        f"{frame_s:.4f} s; launches {launches}; accum sha256 {digest}")
+    require(launches == {"K1": 3, "K2": 3},
+            f"expected 1 K2 + 1 K1 launch per frame over 3 frames, got {launches}")
+    require(torch.equal(accum, a_frame), "main path accum differs from the checked frame")
     require(bool(torch.isfinite(accum).all()), "main path accum not finite")
     require(bool(((argb >> 24) == 0xFF).all()), "main path alpha bytes not all 0xFF")
     n_colors = len(np.unique(argb))
@@ -311,15 +344,21 @@ def main():
     frames_raw, _, accum_raw = timed_frames(render_mod, vol, opts, tables, None)
     frame_raw_s = sorted(frames_raw)[1]
     require(torch.equal(accum, accum_raw), "main path frame differs without the brick table")
-    # K2 alone: the passes add into acc_k, whose values do not matter here
-    k2_ms = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k, bricks), 8)
-    k2_raw_ms = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k), 8)
-    k2_ms2 = bench_prims.kernel_ms(lambda: k2.render_pass(vol, o0, tables[0], acc_k, bricks), 8)
+    # K2 alone, a frame per launch: the passes blend into acc_k, whose
+    # values do not matter here
+    def k2_frame(a):
+        return lambda: k2.render_passes(vol, opts, tables, times, acc_k, a)
+
+    k2_ms1 = bench_prims.kernel_ms(k2_frame(bricks), 4)
+    k2_raw_ms = bench_prims.kernel_ms(k2_frame(None), 4)
+    k2_ms2 = bench_prims.kernel_ms(k2_frame(bricks), 4)
+    k2_ms = (k2_ms1 + k2_ms2) / 2
+    busy = (k2_ms + k1_ms) / (frame_s * 1e3)
     log(f"main path without the brick table: frames {['%.4f' % f for f in frames_raw]} s, "
-        f"median {frame_raw_s:.4f} s; bit-equal accum. K2 per pass at 512^2: "
-        f"{k2_ms:.4f} and {k2_ms2:.4f} ms with the brick table (before and after), "
-        f"{k2_raw_ms:.4f} ms without")
-    k2_ms = (k2_ms + k2_ms2) / 2
+        f"median {frame_raw_s:.4f} s; bit-equal accum. K2 per frame (16 passes) at 512^2: "
+        f"{k2_ms1:.4f} and {k2_ms2:.4f} ms with the brick table (before and after; "
+        f"{k2_ms / 16:.4f} ms a pass), {k2_raw_ms:.4f} ms without ({k2_raw_ms / 16:.4f}); "
+        f"(K2 + K1) device time over the median frame: {busy:.4f}")
 
     # -- 8. the primitive probes E1-E5 through their entry point -------------
     for name in prims.LAUNCHES:
@@ -364,9 +403,15 @@ def main():
     # -- 9. the kernels line ---------------------------------------------------
     n_px = opts.num_pixels
     k1_bound = bound(n_px * 16, 0)
-    k2_bytes = (vol.numel() + tables[0].numel() * 4 + 2 * n_px * 12 + bricks.rows.numel() * 4)
-    k2_bound = bound(k2_bytes, plain["accel"]["samples"] * OPS_PER_SAMPLE)
-    k2_raw_bound = bound(k2_bytes - bricks.rows.numel() * 4, plain["raw"]["samples"] * OPS_PER_SAMPLE)
+    # a frame: the volume, 16 MC tables, the brick rows and the pass times
+    # read once, accum read and written; 9 operations per march sample the
+    # counting build took (the raw march's: the plain version's 1-pass
+    # count times 16)
+    k2_bytes = (vol.numel() + tables.numel() * 4 + 2 * n_px * 12 + bricks.rows.numel() * 4
+                + times.numel() * 4)
+    k2_bound = bound(k2_bytes, k2_lanes["samples"] * OPS_PER_SAMPLE)
+    k2_raw_bound = bound(k2_bytes - bricks.rows.numel() * 4,
+                         16 * plain["raw"]["samples"] * OPS_PER_SAMPLE)
     # E bounds: each table element the rounds touch counts once, at these inputs
     reps, k, lanes = prims.REPS_IN, prims.K, prims.LANES
     e1_rows = touched(x["e1_sidx"].cpu().numpy()[:, None], prims.S, reps)
@@ -391,10 +436,13 @@ def main():
                      k1_ms, k1_plain_ms, k1_bound, None),
         kernel_entry("K2 render_pass", "raymarchcl_tpu_torch/csrc/render_pass.cu",
                      "raymarchcl_tpu/ops/render.py:56", launches["K2"], k2_err, k2_ms,
-                     plain["accel"]["ms"], k2_bound, None,
-                     ms_raw=k2_raw_ms, plain_ms_raw=plain["raw"]["ms"],
-                     bound_ms_raw=k2_raw_bound[0], samples=plain["accel"]["samples"],
-                     samples_raw=plain["raw"]["samples"]),
+                     plain_frame_ms, k2_bound, None, ms_per_pass=k2_ms / 16,
+                     ms_raw=k2_raw_ms, plain_ms_per_pass=plain["accel"]["ms"],
+                     plain_ms_per_pass_raw=plain["raw"]["ms"], bound_ms_raw=k2_raw_bound[0],
+                     samples=k2_lanes["samples"],
+                     plain_samples_per_pass=plain["accel"]["samples"],
+                     plain_samples_per_pass_raw=plain["raw"]["samples"],
+                     active_lanes={n: k2_lanes[n]["active"] for n in k2.COUNTED_LOOPS}),
     ]
     srcs = {"E1": ("e1_row_fetch", 71), "E2": ("e2_sublane_gather", 107),
             "E3": ("e3_probe", 136), "E4": ("e4_transpose", 174), "E5": ("e5_while", 199)}
@@ -416,6 +464,7 @@ def main():
             bench[b]["us"] / 1e3, e_plain_ms[b], e_bounds[key],
             {"E1": e1_lib_ms, "E4": e4_lib_ms}.get(key), **extra))
     log(json.dumps({"kernels": kernels, "frame_s": frame_s, "frame_raw_s": frame_raw_s,
+                    "busy_untraced": busy, "accum_sha256": digest,
                     "accel_build_s": t_accel, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,42 +1,87 @@
-// K2: one spp pass of the renderer, one thread per pixel, blended in place
-// into accum.
+// K2: the spp passes of one frame in one launch, blended into accum.
 //
 // Replaces the per-pass jnp program of the JAX package (on the TPU it is XLA
 // code, with no Pallas source): sampling.init_render_state,
 // camera.camera_ray_lookat, march.raymarch with the smooth normal,
 // shade.shade_after_march (reflectIter == 0: ambient_occlusion, shadow,
-// light_combine, apply_atmosphere) and render.render_pass's blend. The
-// thread runs the reference's own per-ray loops (RenderImage,
-// renderer.cl:478-494; tests/scalar_ref.py), i.e. the semantics of the JAX
-// package's lane-parallel loops. Plain version: the functions of
-// raymarchcl_tpu_torch/ops named beside each device function here.
+// light_combine, apply_atmosphere) and render.render_pass's blend. A thread
+// runs the reference's own per-ray loops (RenderImage, renderer.cl:478-494;
+// tests/scalar_ref.py), i.e. the semantics of the JAX package's lane-parallel
+// loops, for every pass of its pixel in order. Plain version: the functions
+// of raymarchcl_tpu_torch/ops named beside each device function here.
 //
-// Bound on the H100: dependent byte gathers from the volume (L2/HBM latency)
-// and warp divergence. A ray's march is a serial chain of loads whose
-// addresses depend on the previous step, and rays in one warp stop after
-// different numbers of sphere steps, march samples, AO probes and shadow
-// steps. The volume is read as raw uint8 through the read-only path (16.8 MB
-// at 256^3 fits the 50 MB L2); the MC table is read as one float4 per
-// lookup. 256-thread blocks, no shared memory.
+// Bound on the H100: dependent loads and warp divergence, not bytes or
+// operations (the main path's frame runs ~140x its bound, which is the 9
+// operations of each of its ~379 M march samples). A ray's march is a
+// serial chain of loads whose addresses depend on the previous step, and
+// rays in one warp stop after different numbers of sphere steps, march
+// samples, AO probes and shadow steps: the counting build finds the shadow
+// sample loop at 0.47 and the AO sample loop at 0.51 active lanes (PERF.md).
 //
-// The brick skip (ops/accel.py; the JAX package's accel= march) cuts the
-// chain in free space: given the brick table, each sample reads its brick's
-// Chebyshev distance word (again only when the brick changes) beside its
-// voxel byte, both loads in flight together, and where the distance licenses
-// a skip it jumps past the samples the table proves free. Sample positions
-// stay fmaf(delta, k, p0) of the index, so a skip lands on exactly the
-// sample the raw march reaches and no hit moves. The TPU staged whole brick
-// rows to pay one gather for many bit tests; here a sample that is not
-// skipped tests its voxel byte as the raw march does. The kernel is compiled
-// twice (with and without the table), so the raw march is unchanged.
+// - One launch per frame. A thread loops over the passes of its pixel in
+//   order and keeps accum in registers (the exponential blend needs only
+//   the pass order per pixel), so the frame costs one launch, one parameter
+//   block and one read and write of accum.
+// - Brick-local sample tests. Over the brick table a sample is tested
+//   against the STOP bit of its brick's 72-byte row (STOP is v > isoVal, the
+//   march's hit test), loaded only in bricks at distance 0: a brick at
+//   distance >= 1 holds no STOP bit. The row's distance word is re-read only
+//   when the brick changes and may skip samples (ops/accel.py). Sample
+//   positions stay fmaf(delta, k, p0) of the index, so no hit moves and the
+//   result is bit-equal to the raw march, which still tests the x-major
+//   voxel bytes (the kernel is compiled with and without the table).
+// - Warp-shaped pixel tiles from a work counter. A warp renders an 8x4 pixel
+//   tile, so its rays start close together; as many blocks as stay resident
+//   are launched, and each warp takes its next tile from a device counter
+//   until none is left, so the frame's tail is one tile long.
+//
+// A third instance (the counting build, never on the main path) counts,
+// per loop, warp iterations and the active lanes in them. Measured slower
+// and left out: a 64-register cap (80 are used, 3 blocks an SM), one loop
+// over sphere steps and samples (more registers, step bookkeeping at a
+// fifth of the lanes), and work units of one pass of one tile (a warp that
+// keeps its tile for all passes reuses the tile's bricks in L1).
+#include <algorithm>
+
 #include "rmcl_common.cuh"
+
+constexpr int kThreads = 256;
+constexpr int kTileW = 8, kTileH = 4;  // one warp's pixels
+
+// The loops the counting build counts (order of the counts array)
+enum CountedLoop { kPrimarySamples, kPrimarySteps, kAoSamples, kShadowSamples, kShadowSteps,
+                   kCountedLoops };
+
+struct Counts {
+  unsigned iters[kCountedLoops], lanes[kCountedLoops];
+};
+
+template <bool kB, bool kC>
+struct Build {
+  static constexpr bool kBricks = kB;  // march over the brick table
+  static constexpr bool kCount = kC;   // count loop iterations and lanes
+};
 
 struct Scene {
   const RmclParams& P;
   const uint8_t* __restrict__ vol;
-  const float4* __restrict__ table;
-  const int* __restrict__ rows;  // brick table (NB, rowWords) or null
+  const float4* __restrict__ table;  // this pass's MC table
+  const int* __restrict__ rows;      // brick table (NB, rowWords) or null
+  float time;                        // this pass's time
+  Counts* counts;                    // the counting build's, else null
 };
+
+// One warp iteration of a counted loop: the lowest active lane adds it
+template <class K>
+__device__ __forceinline__ void tick(const Scene& S, int loop) {
+  if constexpr (K::kCount) {
+    unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+      S.counts->iters[loop] += 1u;
+      S.counts->lanes[loop] += (unsigned)__popc(m);
+    }
+  }
+}
 
 // sampling.rand_float4
 __device__ __forceinline__ float4 rand_float4(const Scene& S, uint32_t seed) {
@@ -131,13 +176,11 @@ __device__ __forceinline__ SceneDist finish_hit(const Scene& S, SceneDist r, V3f
 }
 
 // march.distance_to_scene with march.march_volume: ground plane U volume.
-// lim = min(steps, static cap, per-ray cap) samples of the fixed-step march.
-// kBricks: march over the brick table. The kernel is built both ways, so the
-// raw march runs exactly the code it ran before the table existed.
-template <bool kBricks>
-__device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float scale,
-                                       int lim, bool active, float idist,
-                                       bool want_material) {
+// lim = min(steps, static cap, per-ray cap) samples of the fixed-step march;
+// `loop` names the sample loop for the counting build.
+template <class K>
+__device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float scale, int lim,
+                                       bool active, float idist, bool want_material, int loop) {
   const RmclParams& P = S.P;
   SceneDist r;
   float gd = rpos.y + P.groundY;
@@ -159,7 +202,7 @@ __device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float
             fmaf(rdir.z, adv, rpos.z + P.vb[2]) * P.invS[2]};
   const float fx = (float)P.rx, fy = (float)P.ry, fz = (float)P.rz;
   int k = 0;
-  if constexpr (!kBricks) {
+  if constexpr (!K::kBricks) {
     // one voxel byte per sample
     int v = -1;
     for (; k < lim; ++k) {
@@ -172,35 +215,43 @@ __device__ SceneDist distance_to_scene(const Scene& S, V3f rpos, V3f rdir, float
     if (k == lim || v < 0) return r;  // budget spent, or left the grid
   } else {
     // the brick's distance word (re-read when the brick changes) may skip
-    // the sample and the ones after it; else its voxel byte is tested
+    // the sample and the ones after it; in a brick at distance 0 the sample
+    // is tested against its STOP bit in the same row
     float vps = fmaxf(fabsf(delta.x) * fx, fmaxf(fabsf(delta.y) * fy, fabsf(delta.z) * fz));
     float inv_vps = vps > 0.0f ? 1.0f / fmaxf(vps, 1e-30f) : 1e30f;  // skips_per_distance
+    const int sh = P.brickShift, m = P.edge - 1;
     bool hit = false;
     int bid_d = -1, dist = 0;
     while (k < lim) {
+      tick<K>(S, loop);
       float kf = (float)k;
       int qx = __float2int_rz(fmaf(delta.x, kf, p0.x) * fx);
       int qy = __float2int_rz(fmaf(delta.y, kf, p0.y) * fy);
       int qz = __float2int_rz(fmaf(delta.z, kf, p0.z) * fz);
       if (qx < 0 || qx >= P.rx || qy < 0 || qy >= P.ry || qz < 0 || qz >= P.rz) break;
-      // the voxel's load is issued first, so the distance load overlaps it
-      int v = __ldg(&S.vol[qz * P.rxy + qy * P.rx + qx]);
-      int bid = ((qz >> P.brickShift) * P.nby + (qy >> P.brickShift)) * P.nbx +
-                (qx >> P.brickShift);
-      if (bid != bid_d) {
-        dist = __ldg(&S.rows[bid * P.rowWords + P.rowWords - 2]);
+      int bid = ((qz >> sh) * P.nby + (qy >> sh)) * P.nbx + (qx >> sh);
+      const int* row = S.rows + bid * P.rowWords;
+      int lbit = ((((qz & m) << sh) + (qy & m)) << sh) + (qx & m);  // L = (lz*e + ly)*e + lx
+      bool fresh = bid != bid_d;
+      int word = 0;
+      if (fresh) {  // both loads in flight together
+        dist = __ldg(&row[P.rowWords - 2]);
+        word = __ldg(&row[lbit >> 5]);
         bid_d = bid;
+      } else if (dist == 0) {
+        word = __ldg(&row[lbit >> 5]);
       }
-      if (dist >= 2) {  // D <= 1 never skips
+      if (dist == 0) {
+        if ((word >> (lbit & 31)) & 1) {
+          hit = true;
+          break;
+        }
+      } else if (dist >= 2) {  // D <= 1 never skips
         int skip = skip_samples(P, dist, inv_vps);
         if (skip > 0) {
           k += 1 + skip;
           continue;
         }
-      }
-      if (v > P.isoVal) {
-        hit = true;
-        break;
       }
       ++k;
     }
@@ -220,8 +271,8 @@ struct Isec {
 
 // march.raymarch: sphere trace of at most max_steps steps, miss rewrite.
 // truncate caps each march at the samples that can still land within
-// max_dist (shadow rays).
-template <bool kBricks>
+// max_dist (shadow rays, counted as such).
+template <class K>
 __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dist,
                          int max_steps, bool active, bool truncate) {
   const RmclParams& P = S.P;
@@ -236,6 +287,7 @@ __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dis
   r.gd = 0.0f;
   if (active) {
     for (int s = 1; s <= max_steps; ++s) {
+      tick<K>(S, truncate ? kShadowSteps : kPrimarySteps);
       V3f p = fma3(ray_dir, dist, ray_pos);
       float idist = intersects_box(P, p, ray_dir);
       int lim = P.maxVoxelIter;
@@ -243,7 +295,8 @@ __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dis
         float cap = fmaf((max_dist - dist + P.eps) + P.voxelSize, inv_steplen, 3.0f);
         lim = min(lim, __float2int_rz(fminf(fmaxf(cap, 0.0f), (float)P.maxVoxelIter)));
       }
-      SceneDist sd = distance_to_scene<kBricks>(S, p, ray_dir, P.marchScale, lim, true, idist, true);
+      SceneDist sd = distance_to_scene<K>(S, p, ray_dir, P.marchScale, lim, true, idist, true,
+                                          truncate ? kShadowSamples : kPrimarySamples);
       bool done = fabsf(sd.dist) <= P.eps || dist >= max_dist;
       r.obj = __float2int_rz(sd.mat);
       r.pos = p;
@@ -283,20 +336,20 @@ __device__ __forceinline__ V3f light_pos(const Scene& S, uint32_t lseed, int i) 
 }
 
 // shade.ambient_occlusion for one surface point
-template <bool kBricks>
+template <class K>
 __device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
   const RmclParams& P = S.P;
   float ao = 1.0f;
   // sampling.ao_seed
   uint32_t seed0 = f2u32(fmaf(pos.z, 2945.87f, fmaf(pos.x, 3183.75f, pos.y * 1831.42f)) +
-                         P.time * 2671.918f);
+                         S.time * 2671.918f);
   for (int i = 0; i <= P.aoIter && ao > 0.01f; ++i) {
     float d = P.aoD[i];
     float4 j = rand_float4(S, seed0 + 37u * (uint32_t)(i + 1));
     V3f sn = normalize3({fmaf(j.x, 0.2f, n.x), fmaf(j.y, 0.2f, n.y), fmaf(j.z, 0.2f, n.z)});
     V3f rp = fma3(sn, d, pos);
-    SceneDist sd = distance_to_scene<kBricks>(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
-                                     intersects_box(P, rp, sn), false);
+    SceneDist sd = distance_to_scene<K>(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
+                                        intersects_box(P, rp, sn), false, kAoSamples);
     ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp / d, 0.0f));
   }
   return ao;
@@ -312,13 +365,13 @@ __device__ __forceinline__ float blinn_phong(float smoothness, V3f ray_dir, V3f 
 
 // shade.object_lighting: AO, per light light_geometry -> shadow ->
 // light_combine
-template <bool kBricks>
-__device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f pos,
-                               int mat, V3f n, V3f reflect_col) {
+template <class K>
+__device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f pos, int mat,
+                               V3f n, V3f reflect_col) {
   const RmclParams& P = S.P;
   V3f albedo = {P.matAlbedo[mat][0], P.matAlbedo[mat][1], P.matAlbedo[mat][2]};
   float r0 = P.matR0[mat], smoothness = P.matSmooth[mat];
-  float ao = ambient_occlusion<kBricks>(S, pos, n);
+  float ao = ambient_occlusion<K>(S, pos, n);
   V3f diff = mul3(sky_gradient(P, n), ao);
   V3f spec = mul3(reflect_col, ao);
   V3f fin = {0.0f, 0.0f, 0.0f};
@@ -336,8 +389,8 @@ __device__ V3f object_lighting(const Scene& S, uint32_t lseed, V3f ray_dir, V3f 
     float lmax = fminf(sqrtf(dsq) - P.shadowBias, P.maxDist);
     bool relevant = dot3(ldir, n) > 0.0f || dot3(normalize3(sub3(ldir, ray_dir)), n) > 0.0f;
     // shade.shadow
-    Isec sh = raymarch<kBricks>(S, fma3(ldir, P.shadowBias, pos), ldir, lmax, P.shadowIter,
-                       in_range && relevant, true);
+    Isec sh = raymarch<K>(S, fma3(ldir, P.shadowBias, pos), ldir, lmax, P.shadowIter,
+                          in_range && relevant, true);
     float sf = sh.dist >= lmax ? 1.0f : 0.0f;
     // shade.light_combine
     float gain = (in_range && sf > 0.0f) ? sf * att : 0.0f;
@@ -369,19 +422,14 @@ __device__ V3f apply_atmosphere(const Scene& S, uint32_t lseed, V3f ray_pos, V3f
   return col;
 }
 
-template <bool kBricks>
-__global__ void __launch_bounds__(256)
-render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
-                   const float4* __restrict__ table, const int* __restrict__ rows,
-                   float* __restrict__ accum, int n) {
-  int pid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid >= n) return;
-  const Scene S{P, vol, table, rows};
-
+// One pass's colour of pixel (x, y), pid = y*width + x
+template <class K>
+__device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
+  const RmclParams& P = S.P;
   // sampling.init_render_state (renderer.cl:467-476)
-  float pix_x = (float)(pid % P.width), pix_y = (float)(pid / P.width);
-  float4 mp = rand_float4(S, (uint32_t)pid * 17u + f2u32(P.time * 3141.3862f));
-  float4 mn = rand_float4(S, (uint32_t)pid * 37u + f2u32(P.time * 1859.1467f));
+  float pix_x = (float)x, pix_y = (float)y;
+  float4 mp = rand_float4(S, (uint32_t)pid * 17u + f2u32(S.time * 3141.3862f));
+  float4 mn = rand_float4(S, (uint32_t)pid * 37u + f2u32(S.time * 1859.1467f));
   V3f mc_normal = normalize3({mn.x, mn.y, mn.z});
   float px = pix_x + mp.z, py = pix_y + mp.w;
   V3f eye = {fmaf(mc_normal.z, P.dof, P.eyePos[0]), fmaf(mc_normal.x, P.dof, P.eyePos[1]),
@@ -398,10 +446,10 @@ render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restri
   V3f ray_pos = eye;
 
   // shade.scene_color -> shade_after_march (reflectIter == 0)
-  Isec isec = raymarch<kBricks>(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
+  Isec isec = raymarch<K>(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
   V3f normal = isec.hit ? voxel_normal_smooth(S, isec.qx, isec.qy, isec.qz)
                         : (isec.gd < 1e5f ? V3f{0.0f, 1.0f, 0.0f} : neg3(ray_dir));
-  uint32_t lseed = f2u32(fmaf(px, 1957.0f, py * 2173.0f) + P.time * 4763.742f);
+  uint32_t lseed = f2u32(fmaf(px, 1957.0f, py * 2173.0f) + S.time * 4763.742f);
   V3f col = sky_gradient(P, ray_dir);
   if (isec.dist < P.maxDist) {
     int mat = min(max(isec.obj, 0), 3);
@@ -409,24 +457,93 @@ render_pass_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restri
     // glossy perturbation, not re-normalized (renderer.cl:420)
     V3f norm_p = fma3(mc_normal, 1.0f / (smoothness * 200.0f + 5.0f), normal);
     V3f reflect_col = sky_gradient(P, reflect3(ray_dir, norm_p));
-    col = object_lighting<kBricks>(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
+    col = object_lighting<K>(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
   }
-  col = apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
-
-  // render.render_pass blend: accum + (col*exposure - accum) * frameBlend
-  float* a = accum + 3 * (size_t)pid;
-  a[0] = fmaf(col.x * P.exposure - a[0], P.frameBlend, a[0]);
-  a[1] = fmaf(col.y * P.exposure - a[1], P.frameBlend, a[1]);
-  a[2] = fmaf(col.z * P.exposure - a[2], P.frameBlend, a[2]);
+  return apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
 }
 
-// rows: the brick table, or null for the raw march
-extern "C" int rmcl_render_pass(const RmclParams* params, const uint8_t* vol, const float* table,
-                                const int* rows, float* accum, int n, cudaStream_t stream) {
-  if (n > 0) {
-    auto kernel = rows ? render_pass_kernel<true> : render_pass_kernel<false>;
-    kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-        *params, vol, reinterpret_cast<const float4*>(table), rows, accum, n);
+// Passes [0, npass) of tables (npass, tableLen) at times (npass,). Each warp
+// takes 8x4 pixel tiles from *next_tile until none is left; counts: the
+// counting build's (iterations, lanes) per loop, else null.
+template <class K>
+__global__ void __launch_bounds__(kThreads)
+render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
+                     const float4* __restrict__ tables, const float* __restrict__ times,
+                     int npass, const int* __restrict__ rows, float* __restrict__ accum,
+                     int* __restrict__ next_tile, unsigned long long* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int tiles_x = (P.width + kTileW - 1) / kTileW;
+  const int n_tiles = tiles_x * ((P.height + kTileH - 1) / kTileH);
+  Counts c = {};
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(next_tile, 1);
+    t = __shfl_sync(0xffffffffu, t, 0);
+    if (t >= n_tiles) break;
+    int x = (t % tiles_x) * kTileW + (lane % kTileW);
+    int y = (t / tiles_x) * kTileH + (lane / kTileW);
+    if (x < P.width && y < P.height) {
+      int pid = y * P.width + x;
+      float* a = accum + 3 * (size_t)pid;
+      float a0 = a[0], a1 = a[1], a2 = a[2];
+      for (int p = 0; p < npass; ++p) {
+        const Scene S{P, vol, tables + (size_t)p * P.tableLen, rows, __ldg(&times[p]),
+                      K::kCount ? &c : nullptr};
+        V3f col = pass_color<K>(S, pid, x, y);
+        // render.render_pass blend: accum + (col*exposure - accum) * frameBlend
+        a0 = fmaf(col.x * P.exposure - a0, P.frameBlend, a0);
+        a1 = fmaf(col.y * P.exposure - a1, P.frameBlend, a1);
+        a2 = fmaf(col.z * P.exposure - a2, P.frameBlend, a2);
+      }
+      a[0] = a0;
+      a[1] = a1;
+      a[2] = a2;
+    }
+    __syncwarp();
   }
+  if constexpr (K::kCount) {
+    for (int i = 0; i < kCountedLoops; ++i) {
+      if (c.iters[i]) atomicAdd(&counts[2 * i], (unsigned long long)c.iters[i]);
+      if (c.lanes[i]) atomicAdd(&counts[2 * i + 1], (unsigned long long)c.lanes[i]);
+    }
+  }
+}
+
+template <class K>
+static int launch(const RmclParams* params, const uint8_t* vol, const float* tables,
+                  const float* times, int npass, const int* rows, float* accum, int* next_tile,
+                  unsigned long long* counts, cudaStream_t stream) {
+  auto kernel = render_passes_kernel<K>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                           kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  int tiles = ((params->width + kTileW - 1) / kTileW) * ((params->height + kTileH - 1) / kTileH);
+  int warps = kThreads / 32;
+  int blocks = std::min(std::max(per_sm, 1) * sms, (tiles + warps - 1) / warps);
+  kernel<<<blocks, kThreads, 0, stream>>>(*params, vol, reinterpret_cast<const float4*>(tables),
+                                          times, npass, rows, accum, next_tile, counts);
   return (int)cudaGetLastError();
+}
+
+// rows: the brick table, or null for the raw march; next_tile: one zeroed
+// int; counts: null, or 2*kCountedLoops zeroed uint64 for the counting
+// build (which needs the brick table)
+extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
+                                  const float* tables, const float* times, int npass,
+                                  const int* rows, float* accum, int* next_tile,
+                                  unsigned long long* counts, cudaStream_t stream) {
+  if (npass <= 0 || params->width <= 0 || params->height <= 0) return 0;
+  if (counts) {
+    if (!rows) return (int)cudaErrorInvalidValue;
+    return launch<Build<true, true>>(params, vol, tables, times, npass, rows, accum, next_tile,
+                                     counts, stream);
+  }
+  if (rows)
+    return launch<Build<true, false>>(params, vol, tables, times, npass, rows, accum, next_tile,
+                                      nullptr, stream);
+  return launch<Build<false, false>>(params, vol, tables, times, npass, rows, accum, next_tile,
+                                     nullptr, stream);
 }

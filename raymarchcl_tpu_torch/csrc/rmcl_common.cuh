@@ -10,13 +10,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Options of one pass, filled by ops/kernels/render_pass.py (RmclParams there
-// lists the same fields in the same order). Derived constants are computed on
-// the host in float32 exactly as the plain version computes them.
+// Options of one frame's passes, filled by ops/kernels/render_pass.py
+// (RmclParams there lists the same fields in the same order); each pass's
+// time goes to the kernel beside it. Derived constants are computed on the
+// host in float32 exactly as the plain version computes them.
 struct RmclParams {
   int width, height;
   int rx, ry, rz, rxy;
   int maxIter, maxVoxelIter, shadowIter, aoIter, numLights, isoVal;
+  int tableLen;              // MC table entries (float4) of one pass
   int edge, brickShift, nbx, nby, rowWords;  // brick table (ops/accel.py); 0 without
   int aoSteps;               // maxVoxelIter / 2
   int aoTrunc[16];           // shade.ao_trunc_steps per AO probe
@@ -28,7 +30,7 @@ struct RmclParams {
   float voxelSize;
   float bmin[3], bmax[3], vb[3], vb2[3], invS[3];
   float eyePos[3], targetPos[3], up[3], sky1[3], sky2[3];
-  float invAspect, time, fov, maxDist, startDist, eps, aoAmp, groundY;
+  float invAspect, fov, maxDist, startDist, eps, aoAmp, groundY;
   float shadowBias, lightScatter, minLightAtt, exposure, dof, frameBlend;
   float fogPow, flareAmp;
   float lightPos[4][4], lightColor[4][4], matAlbedo[4][4], matR0[4], matSmooth[4];

@@ -1,13 +1,13 @@
-"""K2: one spp pass of the renderer, blended into accum
+"""K2: the spp passes of one frame, blended into accum in order
 (reference: RenderImage, renderer.cl:478-494).
 
-On the TPU this pass is jnp code lowered by XLA (`raymarchcl_tpu/ops`:
+On the TPU each pass is jnp code lowered by XLA (`raymarchcl_tpu/ops`:
 sampling, camera, march, shade and render.render_pass); there is no Pallas
-source. On the H100 it is one hand-written CUDA kernel with one thread per
-pixel, csrc/render_pass.cu, which notes what bounds it. Its plain version is
-`render_pass_plain`, built from this package's ops modules. Both march over
-the brick table (ops/accel.py) when one is given, with the same result as
-without it.
+source. On the H100 a frame is one launch of a hand-written CUDA kernel,
+csrc/render_pass.cu, which notes what bounds it: a thread renders every
+pass of its pixel in order. Its plain version is `render_pass_plain`, built
+from this package's ops modules, once per pass. Both march over the brick
+table (ops/accel.py) when one is given, with the same result as without it.
 """
 
 from __future__ import annotations
@@ -24,7 +24,13 @@ from ..shade import REFLECTIONS_NOT_PORTED, ao_step_dist, ao_trunc_steps, scene_
 from ..vecmath import fma
 from . import build
 
-LAUNCHES = 0  # kernel launches by render_pass (plain-version calls excluded)
+LAUNCHES = 0  # K2 launches (one per render_passes call; plain-version calls excluded)
+
+# The loops the counting build counts, in the order of csrc/render_pass.cu's
+# CountedLoop: (warp iterations, active lanes) of each
+COUNTED_LOOPS = ("primary_samples", "primary_steps", "ao_samples", "shadow_samples",
+                 "shadow_steps")
+SAMPLE_LOOPS = ("primary_samples", "ao_samples", "shadow_samples")
 
 MAX_AO_PROBES = 16
 MAX_LIGHTS = 4
@@ -39,7 +45,7 @@ class RmclParams(ctypes.Structure):
         ("width", _i), ("height", _i),
         ("rx", _i), ("ry", _i), ("rz", _i), ("rxy", _i),
         ("maxIter", _i), ("maxVoxelIter", _i), ("shadowIter", _i), ("aoIter", _i),
-        ("numLights", _i), ("isoVal", _i),
+        ("numLights", _i), ("isoVal", _i), ("tableLen", _i),
         ("edge", _i), ("brickShift", _i), ("nbx", _i), ("nby", _i), ("rowWords", _i),
         ("aoSteps", _i), ("aoTrunc", _i * MAX_AO_PROBES), ("aoD", _f * MAX_AO_PROBES),
         ("marchScale", _f), ("aoScale", _f), ("shadowBaseStep", _f),
@@ -48,7 +54,7 @@ class RmclParams(ctypes.Structure):
         ("invS", _f * 3),
         ("eyePos", _f * 3), ("targetPos", _f * 3), ("up", _f * 3),
         ("sky1", _f * 3), ("sky2", _f * 3),
-        ("invAspect", _f), ("time", _f), ("fov", _f), ("maxDist", _f),
+        ("invAspect", _f), ("fov", _f), ("maxDist", _f),
         ("startDist", _f), ("eps", _f), ("aoAmp", _f), ("groundY", _f),
         ("shadowBias", _f), ("lightScatter", _f), ("minLightAtt", _f),
         ("exposure", _f), ("dof", _f), ("frameBlend", _f), ("fogPow", _f),
@@ -59,9 +65,10 @@ class RmclParams(ctypes.Structure):
 
 
 def make_params(opts, accel: Accel | None = None) -> RmclParams:
-    """The kernel's parameter block; derived constants in float32 exactly
-    as the plain version computes them. The brick fields stay 0 without a
-    brick table."""
+    """The kernel's parameter block, one per frame (each pass's time goes
+    beside it, `pass_times`); derived constants in float32 exactly as the
+    plain version computes them. The brick fields stay 0 without a brick
+    table."""
     if opts.reflectIter > 0:
         raise NotImplementedError(REFLECTIONS_NOT_PORTED)
     if not 1 <= opts.numLights <= MAX_LIGHTS:
@@ -74,6 +81,7 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
     p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
     for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal"):
         setattr(p, k, getattr(opts, k))
+    p.tableLen = opts.mcTableLength
     if accel is not None:
         p.edge, p.brickShift = accel.edge, accel.edge.bit_length() - 1
         p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
@@ -94,7 +102,7 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
                      ("targetPos", opts.targetPos), ("up", opts.up),
                      ("sky1", opts.skyColor1), ("sky2", opts.skyColor2)):
         getattr(p, dst)[:] = [float(v) for v in np.asarray(src, np.float32)]
-    for k in ("invAspect", "time", "fov", "maxDist", "startDist", "eps", "aoAmp",
+    for k in ("invAspect", "fov", "maxDist", "startDist", "eps", "aoAmp",
               "groundY", "shadowBias", "lightScatter", "minLightAtt", "exposure",
               "dof", "frameBlend", "fogPow", "flareAmp"):
         setattr(p, k, float(getattr(opts, k)))
@@ -108,8 +116,16 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
     return p
 
 
+def pass_times(times) -> torch.Tensor:
+    """Each pass's time as the float32 value `opts.replace(time=t)` gives
+    it: a (P,) float32 CPU tensor."""
+    if isinstance(times, torch.Tensor):
+        return times.detach().to("cpu", torch.float32).reshape(-1)
+    return torch.tensor([np.float32(t) for t in times], dtype=torch.float32)
+
+
 def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
-    """Plain version: the pass's blended accum (a new tensor)."""
+    """Plain version of one pass: the pass's blended accum (a new tensor)."""
     ids = torch.arange(opts.num_pixels, device=accum.device)
     state = init_render_state(opts, table, ids)
     ray_pos, ray_dir = camera_ray_lookat(opts, state)
@@ -118,22 +134,25 @@ def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> to
     return fma(col_a - accum, opts.frameBlend, accum)
 
 
-def _check(vol, opts, table, accum, accel):
+def _check(vol, opts, tables, times, accum, accel):
     rx, ry, rz, _ = opts.voxelRes
     if vol.dtype != torch.uint8 or vol.shape != (rx * ry * rz,):
         raise ValueError(f"vol must be flat uint8 of {rx * ry * rz} voxels, got "
                          f"{tuple(vol.shape)} {vol.dtype}")
-    if table.dtype != torch.float32 or table.shape != (opts.mcTableLength, 4):
-        raise ValueError(f"table must be ({opts.mcTableLength}, 4) float32, got "
-                         f"{tuple(table.shape)} {table.dtype}")
+    if (tables.dtype != torch.float32 or tables.dim() != 3
+            or tables.shape[1:] != (opts.mcTableLength, 4)):
+        raise ValueError(f"table must be (P, {opts.mcTableLength}, 4) float32 tables, got "
+                         f"{tuple(tables.shape)} {tables.dtype}")
+    if times.shape != (tables.shape[0],):
+        raise ValueError(f"times: {tuple(times.shape)} for {tables.shape[0]} passes")
     if accum.dtype != torch.float32 or accum.shape != (opts.num_pixels, 3):
         raise ValueError(f"accum must be ({opts.num_pixels}, 3) float32, got "
                          f"{tuple(accum.shape)} {accum.dtype}")
-    if not (vol.is_contiguous() and table.is_contiguous() and accum.is_contiguous()):
+    if not (vol.is_contiguous() and tables.is_contiguous() and accum.is_contiguous()):
         raise ValueError("vol, table and accum must be contiguous")
-    if not vol.device == table.device == accum.device:
+    if not vol.device == tables.device == accum.device:
         raise ValueError(f"vol, table and accum on different devices: "
-                         f"{vol.device}, {table.device}, {accum.device}")
+                         f"{vol.device}, {tables.device}, {accum.device}")
     if accel is not None:
         nbx, nby, nbz = brick_dims(opts.voxelRes, accel.edge)
         rows = accel.rows
@@ -144,25 +163,65 @@ def _check(vol, opts, table, accum, accel):
             raise ValueError(f"accel rows must be contiguous on {vol.device}")
 
 
-def render_pass(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
-    """One pass blended into `accum` in place; returns accum. `accel` is
-    the volume's brick table or None. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (or raise)."""
-    _check(vol, opts, table, accum, accel)
-    if accum.device.type == "cpu":
-        return accum.copy_(render_pass_plain(vol, opts, table, accum, accel))
+def _launch(vol, opts, tables, times, accum, accel, counts) -> None:
+    """One launch of K2 over all passes; `counts` selects the counting build."""
     if accum.device.type != "cuda":
         raise ValueError(f"unsupported device {accum.device}")
-    if table.data_ptr() % 16:
+    if tables.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     global LAUNCHES
     params = make_params(opts, accel)
+    # pinned and non-blocking: a pageable copy would wait for the stream
+    times_d = times.pin_memory().to(accum.device, non_blocking=True)
+    next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
     rows = None if accel is None else accel.rows.data_ptr()
     lib = build.library()
     with torch.cuda.device(accum.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rmcl_render_pass(ctypes.byref(params), vol.data_ptr(), table.data_ptr(),
-                                  rows, accum.data_ptr(), opts.num_pixels, stream)
-    build.check(rc, "rmcl_render_pass")
+        rc = lib.rmcl_render_passes(ctypes.byref(params), vol.data_ptr(), tables.data_ptr(),
+                                    times_d.data_ptr(), tables.shape[0], rows,
+                                    accum.data_ptr(), next_tile.data_ptr(),
+                                    None if counts is None else counts.data_ptr(), stream)
+    build.check(rc, "rmcl_render_passes")
     LAUNCHES += 1
+
+
+def render_passes(vol, opts, tables, times, accum, accel: Accel | None = None) -> torch.Tensor:
+    """Passes [0, P) of `tables` (P, T, 4) at `times` (P,), blended into
+    `accum` in place in order; returns accum. `accel` is the volume's brick
+    table or None. CPU tensors take the plain version, pass by pass; CUDA
+    tensors launch the kernel once (or raise)."""
+    times = pass_times(times)
+    _check(vol, opts, tables, times, accum, accel)
+    if accum.device.type == "cpu":
+        for p in range(tables.shape[0]):
+            accum.copy_(render_pass_plain(vol, opts.replace(time=times[p]), tables[p], accum,
+                                          accel))
+        return accum
+    _launch(vol, opts, tables, times, accum, accel, None)
     return accum
+
+
+def render_pass(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
+    """One pass (`table` (T, 4) at opts.time) blended into `accum` in place;
+    returns accum. The one-pass call of `render_passes`."""
+    return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel)
+
+
+def count_lanes(vol, opts, tables, times, accum, accel: Accel) -> dict:
+    """The counting build of K2 over the brick table on a CUDA device: the
+    same passes and accum as `render_passes`, and per counted loop its warp
+    iterations and active lanes, with `samples` the lanes of the sample
+    loops (the march samples the kernel took)."""
+    if accel is None:
+        raise ValueError("the counting build marches over the brick table")
+    times = pass_times(times)
+    _check(vol, opts, tables, times, accum, accel)
+    counts = torch.zeros(2 * len(COUNTED_LOOPS), dtype=torch.int64, device=accum.device)
+    _launch(vol, opts, tables, times, accum, accel, counts)
+    c = counts.cpu().tolist()
+    out = {name: {"iters": c[2 * i], "lanes": c[2 * i + 1],
+                  "active": c[2 * i + 1] / max(32 * c[2 * i], 1)}
+           for i, name in enumerate(COUNTED_LOOPS)}
+    out["samples"] = sum(out[name]["lanes"] for name in SAMPLE_LOOPS)
+    return out

@@ -3,9 +3,9 @@
 Counterpart of the plain path of `raymarchcl_tpu/ops/render.py`: the
 reference's progressive blend (renderer.cl:478-494, `pixels = mix(pixels,
 col*exposure, frameBlend)` over `iter` sequential passes, core.clj:82-90)
-and TonemapImage (renderer.cl:496-508). Each pass is one K2 launch on a
-CUDA device (ops/kernels/render_pass.py), the pack one K1 launch
-(ops/kernels/tonemap.py); on the CPU both run their plain versions.
+and TonemapImage (renderer.cl:496-508). All passes of a frame are one K2
+launch on a CUDA device (ops/kernels/render_pass.py), the pack one K1
+launch (ops/kernels/tonemap.py); on the CPU both run their plain versions.
 
 The accumulation is the reference's exponentially-weighted blend with
 frameBlend = 1/iter from a zeroed buffer, not an arithmetic mean.
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .kernels import tonemap as k_tonemap
-from .kernels.render_pass import render_pass  # one pass blended into accum in place
+from .kernels.render_pass import render_pass, render_passes  # noqa: F401  (blend in place)
 from .kernels.tonemap import tonemap  # noqa: F401  (re-export)
 from .shade import REFLECTIONS_NOT_PORTED
 
@@ -28,9 +28,7 @@ TIME_STEP_INIT = 0.333
 def render_accum(vol, opts, mc_tables, times, accum, accel=None):
     """All spp passes in order (core.clj:83-90); pass p uses times[p] and
     mc_tables[p]. Updates accum in place and returns it."""
-    for p in range(mc_tables.shape[0]):
-        render_pass(vol, opts.replace(time=times[p]), mc_tables[p], accum, accel)
-    return accum
+    return render_passes(vol, opts, mc_tables, times, accum, accel)
 
 
 def pack_argb(opts, accum):

@@ -79,6 +79,62 @@ def test_k2_cuda_brick_table_bit_equal(cuda_device):
     assert float(ok.float().mean()) >= 0.995
 
 
+def _gyroid_case(device, width, height, n_passes):
+    vres = [48, 48, 48]
+    opts = render_options(width=width, height=height, vres=vres, iter=n_passes, mat="ao",
+                          eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
+    vol = torch.from_numpy(generators.make_gyroid_volume({"vres": vres})).to(device)
+    tables = sampling.make_mc_tables(n_passes, seed=0, device=device)
+    times = torch.arange(n_passes, dtype=torch.float32) * 0.333
+    return opts, vol, tables, times, accel.build_accel(vol, vres, opts.isoVal)
+
+
+@pytest.mark.cuda
+def test_k2_cuda_render_passes_bit_equal_single_passes(cuda_device):
+    """One launch of 2 passes equals 2 one-pass launches bit for bit."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 2)
+    before = k2.LAUNCHES
+    frame = k2.render_passes(vol, opts, tables, times,
+                             torch.zeros((opts.num_pixels, 3), device=cuda_device), bricks)
+    assert k2.LAUNCHES == before + 1
+    acc = torch.zeros((opts.num_pixels, 3), device=cuda_device)
+    for p in range(2):
+        k2.render_pass(vol, opts.replace(time=times[p]), tables[p], acc, bricks)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 3
+    assert torch.equal(frame, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(64, 48), (100, 37)])
+def test_k2_cuda_ragged_tiles_match_plain(cuda_device, size):
+    """Frames whose sides are no multiple of the 8x4 warp tile: every
+    pixel is rendered once, within the tolerance of the plain version."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, *size, 1)
+    acc = torch.full((opts.num_pixels, 3), 0.25, device=cuda_device)
+    want = k2.render_pass_plain(vol, opts.replace(time=times[0]), tables[0], acc.clone(), bricks)
+    k2.render_passes(vol, opts, tables, times, acc, bricks)
+    torch.cuda.synchronize()
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_k2_cuda_counting_build_same_accum(cuda_device):
+    """The counting build renders the same accum as the normal build, and
+    its counts are consistent (lanes <= 32 x iterations, samples taken)."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 2)
+    want = k2.render_passes(vol, opts, tables, times,
+                            torch.zeros((opts.num_pixels, 3), device=cuda_device), bricks)
+    acc = torch.zeros_like(want)
+    counts = k2.count_lanes(vol, opts, tables, times, acc, bricks)
+    assert torch.equal(acc, want)
+    for name in k2.COUNTED_LOOPS:
+        c = counts[name]
+        assert 0 < c["iters"] <= c["lanes"] <= 32 * c["iters"], (name, c)
+    assert counts["samples"] > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", ["E1", "E2", "E3", "E4", "E5"])
 def test_prims_cuda_equal_plain(cuda_device, key):

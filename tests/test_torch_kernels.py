@@ -148,7 +148,8 @@ def test_params_values(small_scene):
     opts, _, _ = small_scene
     p = k2.make_params(opts.replace(time=0.333))
     assert (p.width, p.height, p.rx, p.rz, p.rxy) == (8, 6, 32, 96, 1024)
-    assert p.time == float(np.float32(0.333))
+    assert float(k2.pass_times([0.333])[0]) == float(np.float32(0.333))  # beside the block
+    assert p.tableLen == opts.mcTableLength == 0x4000
     assert p.aoSteps == 32 and p.numLights == 1 and p.isoVal == 32
     for i in range(opts.aoIter + 1):
         assert p.aoTrunc[i] == shade.ao_trunc_steps(opts, 32, i)
