@@ -12,9 +12,11 @@ paths: the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit
 camera at theta=135, brick table on; one K2 and one K1 launch a frame)
 through ops.render.render_image, timed with and without the brick table,
 and the primitive probes E1-E5 through raymarchcl_tpu_torch.scripts.
-bench_prims. K2's counting build gives the march samples of its bound and
-its loops' active-lane shares. One line per phase; the second-to-last line
-is a JSON object with one entry per kernel, the last line the JSON result.
+bench_prims, with checks that E1's rounds and E4's reps cost time and
+their library yardsticks. K2's counting build gives the march samples of
+its bound and its loops' active-lane shares. One line per phase; the
+second-to-last line is a JSON object with one entry per kernel, the last
+line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -389,16 +391,28 @@ def main():
     log(f"E1 time by REPS_IN: 16 -> {e1_16 * 1e3:.2f} us, 64 -> {e1_64 * 1e3:.2f} us "
         f"(x{e1_64 / e1_16:.2f})")
     require(e1_64 > 1.5 * e1_16, "E1's rounds do not cost time: were they optimised away?")
-    last = (sidx.long() + prims.REPS_IN - 1) % prims.S
-    e1_lib_ms = bench_prims.kernel_ms(lambda: torch.index_select(table, 0, last), 50)
     xt = x["e4_x"]
+    e4_16 = bench_prims.kernel_ms(lambda: prims.e4_transpose(xt, 16), 50)
+    e4_1024 = bench_prims.kernel_ms(lambda: prims.e4_transpose(xt, 1024), 50)
+    log(f"E4 time by reps: 16 -> {e4_16 * 1e3:.2f} us, 1024 -> {e4_1024 * 1e3:.2f} us "
+        f"(x{e4_1024 / e4_16:.2f})")
+    require(e4_1024 > 2 * e4_16, "E4's reps do not cost time: were they folded?")
+    rounds = (sidx.long()[None, :] + torch.arange(prims.REPS_IN, device=dev)[:, None]) % prims.S
+    e1_lib_ms = bench_prims.kernel_ms(lambda: torch.index_select(table, 0, rounds[-1]), 50)
+    rounds = rounds.reshape(-1)
+    e1_equal_ms = bench_prims.kernel_ms(lambda: torch.index_select(table, 0, rounds), 50)
     e4_lib = torch.empty(xt.shape[::-1], dtype=torch.int32, device=dev)
     torch.mul(xt.t(), prims.REPS_IN, out=e4_lib)
     require(torch.equal(e4_lib, prims.e4_transpose(xt)), "E4 differs from torch.mul(x.t(), 64)")
     e4_lib_ms = bench_prims.kernel_ms(lambda: torch.mul(xt.t(), prims.REPS_IN, out=e4_lib), 50)
-    log(f"E1 library yardstick torch.index_select of the last round: {e1_lib_ms * 1e3:.2f} us; "
-        f"E4 torch.mul(x.t(), 64, out=(128, K)): {e4_lib_ms * 1e3:.2f} us; "
-        f"E0 torch.take loop {bench['E0']['us']:.1f} us")
+    log(f"E1 library yardsticks torch.index_select: the last round {e1_lib_ms * 1e3:.2f} us, "
+        f"all {rounds.numel()} rows of the {prims.REPS_IN} rounds (equal reads) "
+        f"{e1_equal_ms * 1e3:.2f} us; E4 torch.mul(x.t(), 64, out=(128, K)): "
+        f"{e4_lib_ms * 1e3:.2f} us; E0 torch.take loop {bench['E0']['us']:.1f} us")
+    # bytes a second: the row bytes of E1's rounds, the shared-memory bytes E4's reps read
+    e1_rate = prims.K * prims.REPS_IN * table.shape[1] * 4 / (bench["E1"]["us"] * 1e-6)
+    e4_rate = xt.numel() * 4 * prims.REPS_IN / (bench["E4"]["us"] * 1e-6)
+    log(f"E1 rows staged {e1_rate / 1e12:.3f} TB/s; E4 shared memory read {e4_rate / 1e12:.3f} TB/s")
 
     # -- 9. the kernels line ---------------------------------------------------
     n_px = opts.num_pixels
@@ -454,7 +468,10 @@ def main():
                          plain_ms_by_depth={d: e_plain_ms[f"E2/{d}"] for d in prims.E2_DEPTHS},
                          bound_ms_by_depth={d: e2_bound[d][0] for d in prims.E2_DEPTHS})
         if key == "E1":
-            extra = dict(ms_reps16=e1_16, ms_reps64=e1_64)
+            extra = dict(ms_reps16=e1_16, ms_reps64=e1_64, equal_reads_ms=e1_equal_ms,
+                         row_bytes_per_s=e1_rate)
+        if key == "E4":
+            extra = dict(ms_reps16=e4_16, ms_reps1024=e4_1024, smem_bytes_per_s=e4_rate)
         if key == "E5":
             extra = dict(trips=trips)
         kernels.append(kernel_entry(

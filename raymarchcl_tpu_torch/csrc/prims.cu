@@ -5,9 +5,12 @@
 // e4_transpose :174, E5 e5_while :199), which measured whether Mosaic could
 // stage brick rows, gather, probe bits, transpose and loop inside a kernel.
 // Each kernel here computes what its Pallas body computes, at the script's
-// shapes; plain versions: ops/kernels/prims.py, exactly equal. All of them
-// are far below the card's rates: their inputs fit in L2, so they are bound
-// by load latency and launch cost, not by bytes or operations.
+// shapes and at any shape its wrapper accepts; plain versions:
+// ops/kernels/prims.py, exactly equal. Their inputs fit in L2, so none is
+// bound by device-memory bytes: E2, E3 and E5 by load latency and launch
+// cost, E1 by the rate at which L2 delivers rows to shared memory, E4 by
+// shared-memory reads and the launch (notes at each kernel; times in
+// PERF.md).
 //
 // Integer sums wrap as int32 does in XLA: they are taken in uint32 (signed
 // overflow is undefined in C++). Index arithmetic `(a + j) % m` follows
@@ -24,29 +27,49 @@ __device__ __forceinline__ int mod_floor(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// E1: reps rounds of out[k, :] = table[(sidx[k] + j) mod S, :]; out holds
-// the last round. One warp per row k, 16 bytes a lane. The loads and stores
-// are volatile, so every round really moves its row (a compiler would keep
-// only the last round of plain code).
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// E1: reps rounds of out[k, :] = table[(sidx[k] + j) mod S, :]; out holds the
+// last round. What bounds it: the rounds' row reads (K x reps x 4W bytes,
+// 33.6 MB at the script's sizes) all come from L2, where the 2 MB table
+// stays, so the L2's rate into the SMs and the rows in flight, not device
+// memory. So many rounds are kept in flight: a block of kE1Split warps takes
+// row k, warp w the rounds w, w + kE1Split, ..., each a cp.async copy of the
+// row (16 bytes a lane, one commit group a round) into the next slot of the
+// warp's ring of kE1Ring slots in shared memory: the TPU's row into VMEM, a
+// copy the compiler cannot drop. Before a round reuses a slot the warp waits
+// until at most kE1Ring - 1 of its groups are pending, i.e. until the round
+// that held the slot has landed; so kE1Ring rounds are in flight a warp, 32 a
+// row, ~250 an SM. The warp that took round reps - 1 writes out[k] once from
+// its slot (16-byte stores), as the TPU writes its VMEM out_ref back once.
+// TMA bulk copies into the same rings, completing on mbarriers, measured
+// slower on the H100 (PERF.md). The schedule is mirrored in
+// tests/test_torch_prims.py.
+constexpr int kE1Split = 4, kE1Ring = 8;
+
+__global__ void __launch_bounds__(32 * kE1Split)
 e1_row_fetch_kernel(const uint4* __restrict__ table, const int* __restrict__ sidx,
-                    uint4* __restrict__ out, int K, int S, int W4, int reps) {
-  int k = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int lane = threadIdx.x & 31;
-  if (k >= K) return;
+                    uint4* __restrict__ out, int S, int W4, int reps) {
+  extern __shared__ uint4 e1_ring[];  // kE1Split rings of kE1Ring rows
+  int w = threadIdx.x >> 5, lane = threadIdx.x & 31, k = blockIdx.x, n = 0;
+  uint4* ring = e1_ring + (size_t)w * kE1Ring * W4;
   int s0 = sidx[k];
-  for (int j = 0; j < reps; ++j) {
-    int s = mod_floor(add_wrap(s0, j), S);
-    for (int c = lane; c < W4; c += 32) {
-      const uint4* src = table + (size_t)s * W4 + c;
-      uint4* dst = out + (size_t)k * W4 + c;
-      uint4 v;
-      asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(src));
-      asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};"
-                   :: "l"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
-    }
+  for (int j = w; j < reps; j += kE1Split, ++n) {
+    if (n >= kE1Ring) asm volatile("cp.async.wait_group %0;" ::"n"(kE1Ring - 1) : "memory");
+    const uint4* src = table + (size_t)mod_floor(add_wrap(s0, j), S) * W4;
+    uint4* dst = ring + (size_t)(n % kE1Ring) * W4;
+    for (int c = lane; c < W4; c += 32)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst + c)),
+                   "l"(src + c)
+                   : "memory");
+    asm volatile("cp.async.commit_group;" ::: "memory");
   }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  if (n == 0 || (reps - 1) % kE1Split != w) return;
+  const uint4* last = ring + (size_t)((n - 1) % kE1Ring) * W4;
+  for (int c = lane; c < W4; c += 32) out[(size_t)k * W4 + c] = last[c];
 }
 
 // E2: out[r, c] = sum_{j<reps} table[(idx[r, c] + j) mod depth, c], the
@@ -84,27 +107,83 @@ e3_probe_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ w,
   out[k] = (int)hits;
 }
 
-// E4: out = sum_{j<reps} x^T, (R, C) -> (C, R). 32x32 tiles through padded
-// shared memory (coalesced reads and writes, no bank conflicts); each of the
-// reps re-reads the transposed element from shared memory (volatile, so the
-// sum is not folded into one multiply).
-__global__ void __launch_bounds__(256)
-e4_transpose_kernel(const int* __restrict__ x, int* __restrict__ out, int R, int C, int reps) {
-  __shared__ int tile[32][33];
-  int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    int r = r0 + i, c = c0 + threadIdx.x;
-    if (r < R && c < C) tile[i][threadIdx.x] = x[(size_t)r * C + c];
+// E4: out = sum_{j<reps} x^T, (R, C) -> (C, R). What bounds it: the reps'
+// shared-memory reads (R x C x 4 x reps bytes, 33.6 MB at the script's sizes,
+// ~1 us at 128 bytes a clock an SM) and the launch; device memory sees 1 MB.
+// So the reads are 16 bytes wide and spread over many warps: a block
+// transposes a tile of kE4TileR input rows by kE4TileC input columns (512
+// blocks of 128 threads at the script's shape, 16 warps an SM), stored
+// column-major (a column of the tile is a row of out) under an XOR swizzle of
+// its 16-byte chunks: element (i, c) of the tile is word e4_word(i, c).
+// Loads: a thread takes 4 neighbouring elements of an input row (16 bytes
+// where the row is aligned and whole, else element by element) and stores
+// them as 4 words; a warp's stores hit 32 banks. Reads: a chunk of out (4
+// neighbouring elements of an out row) is one 16-byte LDS, 4x fewer load
+// instructions; each of the reps is read again (volatile), split over
+// kE4Split neighbouring lanes that sum by shuffles; the 8 lanes of a quarter
+// warp read distinct chunks (or the same one), so no bank conflict. Sums are
+// uint32 (wrap); the first lane of a chunk stores it, 16 bytes where out's
+// row is aligned and whole. Splits of 1 and 4 lanes measured slower
+// (PERF.md). The index map is mirrored in tests/test_torch_prims.py.
+constexpr int kE4TileR = 32, kE4TileC = 8, kE4Split = 2;
+constexpr int kE4Threads = kE4TileR * kE4TileC / 4 * kE4Split;
+
+__device__ __forceinline__ int e4_word(int i, int c) {
+  return c * kE4TileR + ((((i >> 2) ^ (c & 4)) & 7) << 2) + (i & 3);
+}
+
+__global__ void __launch_bounds__(kE4Threads)
+e4_transpose_kernel(const int* __restrict__ x, int* __restrict__ out, int R, int C, int reps,
+                    int tiles_c, bool vec_in, bool vec_out) {
+  __shared__ __align__(16) uint32_t tile[kE4TileR * kE4TileC];
+  int r0 = (blockIdx.x / tiles_c) * kE4TileR, c0 = (blockIdx.x % tiles_c) * kE4TileC;
+  int t = threadIdx.x;
+  if (t < kE4TileR * kE4TileC / 4) {
+    int i = t / (kE4TileC / 4), g = t % (kE4TileC / 4) * 4, r = r0 + i, c = c0 + g;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (r < R) {
+      const int* src = x + (size_t)r * C + c;
+      if (vec_in && c + 3 < C) {
+        asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                     : "l"(src));
+      } else {
+        for (int q = 0; q < 4; ++q)
+          if (c + q < C) v[q] = (uint32_t)src[q];
+      }
+    }
+    for (int q = 0; q < 4; ++q) tile[e4_word(i, g + q)] = v[q];
   }
   __syncthreads();
-  const volatile int* t = &tile[0][0];
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    int c = c0 + i, r = r0 + threadIdx.x;
-    if (r < R && c < C) {
-      uint32_t acc = 0;
-      for (int j = 0; j < reps; ++j) acc += (uint32_t)t[threadIdx.x * 33 + i];
-      out[(size_t)c * R + r] = (int)acc;
-    }
+  int o = t / kE4Split, part = t % kE4Split, cl = o / (kE4TileR / 4), h = o % (kE4TileR / 4);
+  uint32_t at = smem_u32(&tile[e4_word(4 * h, cl)]);
+  uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+#pragma unroll 4
+  for (int j = part; j < reps; j += kE4Split) {
+    uint32_t v0, v1, v2, v3;
+    asm volatile("ld.volatile.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v0), "=r"(v1), "=r"(v2), "=r"(v3)
+                 : "r"(at)
+                 : "memory");
+    a0 += v0, a1 += v1, a2 += v2, a3 += v3;
+  }
+#pragma unroll
+  for (int m = 1; m < kE4Split; m <<= 1) {
+    a0 += __shfl_xor_sync(0xffffffffu, a0, m);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, m);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, m);
+    a3 += __shfl_xor_sync(0xffffffffu, a3, m);
+  }
+  int c = c0 + cl, r = r0 + 4 * h;
+  if (part != 0 || c >= C || r >= R) return;
+  int* dst = out + (size_t)c * R + r;
+  if (vec_out && r + 3 < R) {
+    asm volatile("st.global.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(dst), "r"(a0), "r"(a1), "r"(a2),
+                 "r"(a3)
+                 : "memory");
+  } else {
+    uint32_t a[4] = {a0, a1, a2, a3};
+    for (int q = 0; q < 4 && r + q < R; ++q) dst[q] = (int)a[q];
   }
 }
 
@@ -129,9 +208,14 @@ __global__ void e5_while_kernel(const int* __restrict__ x, int* __restrict__ out
 
 extern "C" int rmcl_e1_row_fetch(const int* table, const int* sidx, int* out, int K, int S,
                                  int W, int reps, cudaStream_t stream) {
+  if (reps < 1 || W % 4) return (int)cudaErrorInvalidValue;
   if (K > 0) {
-    e1_row_fetch_kernel<<<(K * 32 + 255) / 256, 256, 0, stream>>>(
-        reinterpret_cast<const uint4*>(table), sidx, reinterpret_cast<uint4*>(out), K, S, W / 4,
+    size_t smem = (size_t)kE1Split * kE1Ring * W * 4;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(e1_row_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+    e1_row_fetch_kernel<<<K, 32 * kE1Split, smem, stream>>>(
+        reinterpret_cast<const uint4*>(table), sidx, reinterpret_cast<uint4*>(out), S, W / 4,
         reps);
   }
   return (int)cudaGetLastError();
@@ -157,8 +241,11 @@ extern "C" int rmcl_e3_probe(const int* rows, const int* w, const int* b, int* o
 extern "C" int rmcl_e4_transpose(const int* x, int* out, int R, int C, int reps,
                                  cudaStream_t stream) {
   if (R > 0 && C > 0) {
-    dim3 grid((C + 31) / 32, (R + 31) / 32), block(32, 8);
-    e4_transpose_kernel<<<grid, block, 0, stream>>>(x, out, R, C, reps);
+    int tiles_c = (C + kE4TileC - 1) / kE4TileC, tiles = tiles_c * ((R + kE4TileR - 1) / kE4TileR);
+    bool vec_in = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+    bool vec_out = R % 4 == 0 && (uintptr_t)out % 16 == 0;
+    e4_transpose_kernel<<<tiles, kE4Threads, 0, stream>>>(x, out, R, C, reps, tiles_c, vec_in,
+                                                          vec_out);
   }
   return (int)cudaGetLastError();
 }

@@ -112,10 +112,12 @@ def _launch(name, fn, dev, *args):
 
 def e1_row_fetch(table, sidx, reps=REPS_IN):
     """E1 on (S, W) table rows for (K,) row indices -> (K, W)."""
+    if reps < 1:
+        raise ValueError(f"E1: reps must be >= 1, got {reps}")
     if _on_cpu("E1", table=table, sidx=sidx):
         return e1_row_fetch_plain(table, sidx, reps)
-    if table.dim() != 2 or table.shape[1] % 4 or sidx.dim() != 1:
-        raise ValueError(f"E1: table (S, 4m) and sidx (K,), got {tuple(table.shape)}, "
+    if table.dim() != 2 or table.shape[0] < 1 or table.shape[1] % 4 or sidx.dim() != 1:
+        raise ValueError(f"E1: table (S >= 1, 4m) and sidx (K,), got {tuple(table.shape)}, "
                          f"{tuple(sidx.shape)}")
     out = torch.empty((sidx.shape[0], table.shape[1]), dtype=torch.int32, device=table.device)
     if table.data_ptr() % 16 or out.data_ptr() % 16:

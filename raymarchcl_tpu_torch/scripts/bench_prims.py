@@ -138,6 +138,8 @@ def run(device="cuda", n=20, log=print):
            K * REPS_IN)
     log(f"  {'   as bits staged (bit/s)':34s} {res['E1']['us']:9.1f} us  "
         f"{K * REPS_IN * 4096 / res['E1']['us']:10.1f} M/s")
+    log(f"  {'   row bytes of all rounds (MB/s)':34s} {res['E1']['us']:9.1f} us  "
+        f"{K * REPS_IN * LANES * 4 / res['E1']['us']:10.1f} M/s")
 
     for d in E2_DEPTHS:
         tab, idx = x[f"e2_table_{d}"], x[f"e2_idx_{d}"]
@@ -154,6 +156,8 @@ def run(device="cuda", n=20, log=print):
     require_equal("E4", prims.e4_transpose(xt), prims.e4_transpose_plain(xt))
     report("E4", "E4 transpose (K,128)->(128,K)", lambda: prims.e4_transpose(xt),
            K * LANES * REPS_IN)
+    log(f"  {'   shared-memory bytes read (MB/s)':34s} {res['E4']['us']:9.1f} us  "
+        f"{K * LANES * 4 * REPS_IN / res['E4']['us']:10.1f} M/s")
 
     for key, xs in (("E5", x["e5_x"]), ("E5/timed", x["e5_x_timed"])):
         out, trips = prims.e5_while(xs)

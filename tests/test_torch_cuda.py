@@ -156,3 +156,41 @@ def test_prims_cuda_equal_plain(cuda_device, key):
         assert prims.LAUNCHES[key] == before + 1
         for g, w in zip(got, want) if key == "E5" else [(got, want)]:
             assert torch.equal(g, w), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 16, 64])
+def test_e1_cuda_ragged_equal_plain(cuda_device, reps):
+    """E1's ring of bulk copies at row counts and widths other than the
+    script's (one row, a partial last block, 4-word rows, negative and
+    out-of-range start rows): exactly the plain version, one launch each."""
+    rng = np.random.default_rng(reps)
+    for s, w, k in ((4096, 128, 1024), (37, 4, 5), (100, 12, 300), (9, 256, 1)):
+        table = torch.from_numpy(rng.integers(-2**31, 2**31, (s, w)).astype(np.int32))
+        sidx = torch.from_numpy(rng.integers(-3 * s, 3 * s, k).astype(np.int32))
+        table, sidx = table.to(cuda_device), sidx.to(cuda_device)
+        before = prims.LAUNCHES["E1"]
+        got = prims.e1_row_fetch(table, sidx, reps)
+        torch.cuda.synchronize()
+        assert prims.LAUNCHES["E1"] == before + 1
+        assert torch.equal(got, prims.e1_row_fetch_plain(table, sidx, reps)), (s, w, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 16, 64])
+def test_e4_cuda_ragged_equal_plain(cuda_device, reps):
+    """E4's swizzled tiles at ragged shapes (the scalar edge path), on a
+    view that is not 16-byte aligned, and at the script's shape: exactly the
+    plain version, one launch each."""
+    rng = np.random.default_rng(reps)
+    flat = torch.from_numpy(rng.integers(-2**31, 2**31, 65 * 64).astype(np.int32))
+    xs = [torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(np.int32))
+          for shape in ((1024, 128), (37, 70), (1, 5), (33, 9), (5, 1))]
+    unaligned = flat.to(cuda_device)[1:1 + 64 * 64].view(64, 64)
+    assert unaligned.data_ptr() % 16
+    for x in [x.to(cuda_device) for x in xs] + [unaligned]:
+        before = prims.LAUNCHES["E4"]
+        got = prims.e4_transpose(x, reps)
+        torch.cuda.synchronize()
+        assert prims.LAUNCHES["E4"] == before + 1
+        assert torch.equal(got, prims.e4_transpose_plain(x, reps)), tuple(x.shape)

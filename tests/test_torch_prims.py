@@ -9,11 +9,14 @@ body adds int32 or uint32. On the CPU each wrapper runs its plain version
 and counts no launch; the kernels themselves are compared with their plain
 versions on a GPU (test_torch_cuda.py, chip_smoke.py)."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
-from raymarchcl_tpu_torch.ops.kernels import prims
+from raymarchcl_tpu_torch.ops.kernels import build, prims
 from raymarchcl_tpu_torch.scripts import bench_prims
 
 torch.set_num_threads(1)
@@ -133,6 +136,137 @@ def test_e5_while(case):
     out, trips = prims.e5_while(_t(xw))
     np.testing.assert_array_equal(out.numpy(), xw)
     assert int(trips[0]) == i
+
+
+def _prims_src():
+    return open(os.path.join(build.CSRC_DIR, "prims.cu")).read()
+
+
+def _e4_tile():
+    """(kE4TileR, kE4TileC, kE4Split) as csrc/prims.cu declares them."""
+    m = re.search(r"constexpr int kE4TileR = (\d+), kE4TileC = (\d+), kE4Split = (\d+);",
+                  _prims_src())
+    return tuple(int(g) for g in m.groups())
+
+
+def e4_word(i, c):
+    """csrc/prims.cu e4_word, its expression evaluated as written there: the
+    shared-memory word of tile element (input row i, column c)."""
+    expr = re.search(r"int e4_word\(int i, int c\) \{\s*return (.*?);", _prims_src(), re.S)
+    return eval(expr.group(1), {"kE4TileR": _e4_tile()[0]}, {"i": i, "c": c})
+
+
+@pytest.mark.parametrize("reps", [1, 7, 64])
+@pytest.mark.parametrize("shape", [(1024, 128), (37, 70), (1, 5), (33, 9)])
+def test_e4_swizzle_map(shape, reps):
+    """E4's tile map, as the kernel runs it: the swizzle is a bijection of
+    the tile onto its words, a warp's stores and a quarter warp's 16-byte
+    reads hit distinct banks, each rep of a chunk is read by exactly one of
+    its lanes, and over the grid every element of out is written once with
+    reps times its input (ragged edges included)."""
+    tr, tc, split = _e4_tile()
+    r_all, c_all = shape
+    # load phase: thread t < tr*tc/4 stores 4 elements of input row i
+    t = np.arange(tr * tc // 4)
+    i, g = t // (tc // 4), t % (tc // 4) * 4
+    words = np.stack([e4_word(i, g + q) for q in range(4)], axis=1)  # (threads, q)
+    np.testing.assert_array_equal(np.sort(words.ravel()), np.arange(tr * tc))
+    for w0 in range(0, len(t), 32):
+        for q in range(4):
+            assert len(set(words[w0:w0 + 32, q] % 32)) == min(32, len(t) - w0)
+    # read phase: thread t reads chunk o = t // split, rows 4h..4h+3 of column cl
+    t = np.arange(tr * tc // 4 * split)
+    o, part = t // split, t % split
+    cl, h = o // (tr // 4), o % (tr // 4)
+    at = e4_word(4 * h, cl)
+    assert (at % 4 == 0).all()
+    for q in range(4):
+        np.testing.assert_array_equal(at + q, e4_word(4 * h + q, cl))
+    for w0 in range(0, len(t), 8):  # distinct addresses of a quarter warp: distinct banks
+        chunks = set(at[w0:w0 + 8] // 4)
+        assert len({ch % 8 for ch in chunks}) == len(chunks)
+    for ch in set(o):
+        parts = part[o == ch]
+        reads = sorted(j for p in parts for j in range(p, reps, split))
+        assert reads == list(range(reps))  # each rep once, by one lane
+    # the grid: the kernel's result from the map, against the plain version
+    rng = np.random.default_rng(reps)
+    xs = rng.integers(-2**31, 2**31, shape).astype(np.int32)
+    out = np.full((c_all, r_all), -1, np.int64)
+    writes = np.zeros((c_all, r_all), int)
+    lane0 = part == 0
+    for r0 in range(0, r_all, tr):
+        for c0 in range(0, c_all, tc):
+            smem = np.zeros(tr * tc, np.int64)
+            rr, cc = r0 + i, c0 + g
+            for q in range(4):
+                ok = (rr < r_all) & (cc + q < c_all)
+                smem[words[ok, q]] = xs[rr[ok], cc[ok] + q]
+            for q in range(4):
+                orow, ocol = c0 + cl[lane0], r0 + 4 * h[lane0] + q
+                ok = (orow < c_all) & (ocol < r_all)
+                out[orow[ok], ocol[ok]] = smem[at[lane0][ok] + q] * reps
+                writes[orow[ok], ocol[ok]] += 1
+    assert (writes == 1).all()
+    want = prims.e4_transpose_plain(_t(xs), reps).numpy()
+    np.testing.assert_array_equal(prims._wrap(torch.from_numpy(out)).numpy(), want)
+
+
+def _e1_ring():
+    """(kE1Split, kE1Ring) as csrc/prims.cu declares them."""
+    m = re.search(r"constexpr int kE1Split = (\d+), kE1Ring = (\d+);", _prims_src())
+    return int(m.group(1)), int(m.group(2))
+
+
+def e1_warp_ops(w, reps, split, depth):
+    """csrc/prims.cu e1_row_fetch_kernel, warp w of a row's block: ("copy",
+    slot, round) (a commit group), ("wait_group", n pending allowed), and
+    ("store", slot) by the warp that took round reps - 1."""
+    ops, n = [], 0
+    for j in range(w, reps, split):
+        if n >= depth:
+            ops.append(("wait_group", depth - 1))
+        ops.append(("copy", n % depth, j))
+        n += 1
+    ops.append(("wait_group", 0))
+    if n and (reps - 1) % split == w:
+        ops.append(("store", (n - 1) % depth))
+    return ops
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8, 128])
+@pytest.mark.parametrize("reps", [1, 2, 7, 16, 64])
+def test_e1_ring_schedule(reps, depth):
+    """E1's round-to-slot schedule against a model of cp.async groups (a
+    wait_group n lands all but the n newest pending groups of the warp): no
+    round is copied into a slot whose copy is in flight, every round is
+    copied once, one warp stores, with nothing in flight, the slot holding
+    round reps - 1. Depths below and above the rounds a warp takes; the
+    kernel's own depth is kE1Ring."""
+    split = _e1_ring()[0]
+    copied, stores = [], []
+    for w in range(split):
+        pending, held = [], {}  # (slot, round) in commit order; round landed in each slot
+        for op in e1_warp_ops(w, reps, split, depth):
+            if op[0] == "copy":
+                _, slot, j = op
+                assert all(p[0] != slot for p in pending), f"round {j} races into slot {slot}"
+                pending.append((slot, j))
+                copied.append(j)
+            elif op[0] == "wait_group":
+                while len(pending) > op[1]:
+                    slot, j = pending.pop(0)
+                    held[slot] = j
+            else:
+                assert not pending, "a copy is in flight at the store"
+                stores.append(held[op[1]])
+    assert sorted(copied) == list(range(reps))
+    assert stores == [reps - 1]
+
+
+def test_e1_row_fetch_reps_checked(x):
+    with pytest.raises(ValueError, match="reps"):
+        prims.e1_row_fetch(x["e1_table"], x["e1_sidx"], 0)
 
 
 def test_wrappers_cpu_and_checks(x):
