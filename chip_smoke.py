@@ -12,11 +12,11 @@ paths: the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit
 camera at theta=135, brick table on; one K2 and one K1 launch a frame)
 through ops.render.render_image, timed with and without the brick table,
 and the primitive probes E1-E5 through raymarchcl_tpu_torch.scripts.
-bench_prims, with checks that E1's rounds and E4's reps cost time and
-their library yardsticks. K2's counting build gives the march samples of
-its bound and its loops' active-lane shares. One line per phase; the
-second-to-last line is a JSON object with one entry per kernel, the last
-line the JSON result.
+bench_prims, with checks that E1's rounds, E4's reps and E5's trips cost
+time, their library yardsticks and the launch floor. K2's counting build
+gives the march samples of its bound and its loops' active-lane shares. One
+line per phase; the second-to-last line is a JSON object with one entry per
+kernel, the last line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -397,6 +397,10 @@ def main():
     log(f"E4 time by reps: 16 -> {e4_16 * 1e3:.2f} us, 1024 -> {e4_1024 * 1e3:.2f} us "
         f"(x{e4_1024 / e4_16:.2f})")
     require(e4_1024 > 2 * e4_16, "E4's reps do not cost time: were they folded?")
+    e5_100, e5_1000 = bench["E5/short"]["us"], bench["E5"]["us"]
+    log(f"E5 time by trips: 100 -> {e5_100:.2f} us, 1000 -> {e5_1000:.2f} us "
+        f"(x{e5_1000 / e5_100:.2f}), {bench['E5']['ns_per_trip']:.2f} ns a trip")
+    require(e5_1000 > 2 * e5_100, "E5's trips do not cost time: was the loop folded?")
     rounds = (sidx.long()[None, :] + torch.arange(prims.REPS_IN, device=dev)[:, None]) % prims.S
     e1_lib_ms = bench_prims.kernel_ms(lambda: torch.index_select(table, 0, rounds[-1]), 50)
     rounds = rounds.reshape(-1)
@@ -405,10 +409,26 @@ def main():
     torch.mul(xt.t(), prims.REPS_IN, out=e4_lib)
     require(torch.equal(e4_lib, prims.e4_transpose(xt)), "E4 differs from torch.mul(x.t(), 64)")
     e4_lib_ms = bench_prims.kernel_ms(lambda: torch.mul(xt.t(), prims.REPS_IN, out=e4_lib), 50)
+    # E2's yardstick: one torch.gather of all 64 rounds' rows at depth 4096,
+    # the index built outside the timed call; it reads what E2 reads but
+    # writes every round instead of summing them
+    e2_tab, e2_idx = x["e2_table_4096"], x["e2_idx_4096"]
+    e2_ix = ((e2_idx.long()[None] + torch.arange(prims.REPS_IN, device=dev)[:, None, None])
+             % e2_tab.shape[0]).reshape(-1, e2_tab.shape[1])
+    e2_gathered = torch.gather(e2_tab, 0, e2_ix)
+    require(torch.equal(prims.e2_gather(e2_tab, e2_idx), prims._wrap(
+        e2_gathered.long().reshape(prims.REPS_IN, *e2_idx.shape).sum(0)).int()),
+        "E2 differs from the sum of torch.gather's rounds")
+    e2_equal_ms = bench_prims.kernel_ms(lambda: torch.gather(e2_tab, 0, e2_ix), 50)
     log(f"E1 library yardsticks torch.index_select: the last round {e1_lib_ms * 1e3:.2f} us, "
         f"all {rounds.numel()} rows of the {prims.REPS_IN} rounds (equal reads) "
         f"{e1_equal_ms * 1e3:.2f} us; E4 torch.mul(x.t(), 64, out=(128, K)): "
         f"{e4_lib_ms * 1e3:.2f} us; E0 torch.take loop {bench['E0']['us']:.1f} us")
+    log(f"E2 equal-reads yardstick (a yardstick, not the same function: it reads the same "
+        f"elements but writes each round instead of summing): torch.gather of all "
+        f"{e2_ix.shape[0]} rows of the {prims.REPS_IN} rounds at depth {e2_tab.shape[0]} "
+        f"{e2_equal_ms * 1e3:.2f} us, E2 {bench['E2/4096']['us']:.2f} us; launch floor "
+        f"(torch.cuda._sleep(0)) {bench['floor']['us']:.2f} us")
     # bytes a second: the row bytes of E1's rounds, the shared-memory bytes E4's reps read
     e1_rate = prims.K * prims.REPS_IN * table.shape[1] * 4 / (bench["E1"]["us"] * 1e-6)
     e4_rate = xt.numel() * 4 * prims.REPS_IN / (bench["E4"]["us"] * 1e-6)
@@ -466,21 +486,24 @@ def main():
         if key == "E2":
             extra = dict(ms_by_depth={d: bench[f"E2/{d}"]["us"] / 1e3 for d in prims.E2_DEPTHS},
                          plain_ms_by_depth={d: e_plain_ms[f"E2/{d}"] for d in prims.E2_DEPTHS},
-                         bound_ms_by_depth={d: e2_bound[d][0] for d in prims.E2_DEPTHS})
+                         bound_ms_by_depth={d: e2_bound[d][0] for d in prims.E2_DEPTHS},
+                         equal_reads_ms=e2_equal_ms)
         if key == "E1":
             extra = dict(ms_reps16=e1_16, ms_reps64=e1_64, equal_reads_ms=e1_equal_ms,
                          row_bytes_per_s=e1_rate)
         if key == "E4":
             extra = dict(ms_reps16=e4_16, ms_reps1024=e4_1024, smem_bytes_per_s=e4_rate)
         if key == "E5":
-            extra = dict(trips=trips)
+            extra = dict(trips=trips, ms_trips100=e5_100 / 1e3,
+                         ns_per_trip=bench["E5"]["ns_per_trip"])
         kernels.append(kernel_entry(
             f"{key} {fn}", "raymarchcl_tpu_torch/csrc/prims.cu",
             f"scripts/bench_pallas_prims.py:{line}", e_launches[key],
             max(v for k_, v in e_err.items() if k_.split("/")[0] == key),
             bench[b]["us"] / 1e3, e_plain_ms[b], e_bounds[key],
             {"E1": e1_lib_ms, "E4": e4_lib_ms}.get(key), **extra))
-    log(json.dumps({"kernels": kernels, "frame_s": frame_s, "frame_raw_s": frame_raw_s,
+    log(json.dumps({"kernels": kernels, "launch_floor_ms": bench["floor"]["us"] / 1e3,
+                    "frame_s": frame_s, "frame_raw_s": frame_raw_s,
                     "busy_untraced": busy, "accum_sha256": digest,
                     "accel_build_s": t_accel, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,10 +7,10 @@
 // Each kernel here computes what its Pallas body computes, at the script's
 // shapes and at any shape its wrapper accepts; plain versions:
 // ops/kernels/prims.py, exactly equal. Their inputs fit in L2, so none is
-// bound by device-memory bytes: E2, E3 and E5 by load latency and launch
-// cost, E1 by the rate at which L2 delivers rows to shared memory, E4 by
-// shared-memory reads and the launch (notes at each kernel; times in
-// PERF.md).
+// bound by device-memory bytes: E2 and E3 by load latency and the launch, E5
+// by its trips' dependent chain (decrement, compare, vote), E1 by the rate at
+// which L2 delivers rows to shared memory, E4 by shared-memory reads and the
+// launch (notes at each kernel; times in PERF.md).
 //
 // Integer sums wrap as int32 does in XLA: they are taken in uint32 (signed
 // overflow is undefined in C++). Index arithmetic `(a + j) % m` follows
@@ -73,18 +73,61 @@ e1_row_fetch_kernel(const uint4* __restrict__ table, const int* __restrict__ sid
 }
 
 // E2: out[r, c] = sum_{j<reps} table[(idx[r, c] + j) mod depth, c], the
-// take_along_axis of axis 0 (the TPU's sublane gather). One thread per
-// output element; the table, at every depth, is read through L1/L2.
+// take_along_axis of axis 0 (the TPU's sublane gather). What bounds it: not
+// bytes (the table, 4 KB-2 MB, is read through L1/L2) but the latency of the
+// rounds' loads and the launch. One thread an output ran its 64 rounds one
+// after another, each behind an integer division, on 8 SMs. So kE2Lanes
+// neighbouring lanes share an output (16,384 threads at the script's sizes,
+// about a block of 128 an SM), each lane a contiguous share of the rounds
+// (e2_share; the last share may be shorter or empty). A lane takes one floor
+// modulo for its first round, then steps the row by +1 with a wrap at depth,
+// no division a round; where idx + reps - 1 overflows int32 (e2_steps false)
+// each round takes the formula. A lane starts a batch of up to kE2Batch
+// loads (read-only path, volatile: every round is a load) before it adds
+// them; the group's partial sums meet by shuffles (uint32, so any order
+// gives the same bits), threads past the last output adding 0, and the
+// group's first lane stores. 4, 8 and 32 lanes an output measured no faster
+// over the script's depths (PERF.md). The schedule is mirrored in
+// tests/test_torch_prims.py.
+constexpr int kE2Lanes = 16, kE2Batch = 16;
+
+__device__ __forceinline__ int e2_share(int reps) {
+  return (reps + kE2Lanes - 1) / kE2Lanes;
+}
+
+__device__ __forceinline__ bool e2_steps(int i0, int reps) {
+  return i0 <= INT32_MAX - (reps - 1);
+}
+
 __global__ void __launch_bounds__(128)
 e2_gather_kernel(const int* __restrict__ table, const int* __restrict__ idx,
                  int* __restrict__ out, int n, int cols, int depth, int reps) {
-  int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  int c = e % cols, i0 = idx[e];
-  uint32_t acc = 0;
-  for (int j = 0; j < reps; ++j)
-    acc += (uint32_t)__ldg(&table[mod_floor(add_wrap(i0, j), depth) * cols + c]);
-  out[e] = (int)acc;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x, o = t / kE2Lanes;
+  int part = (int)(t % kE2Lanes), share = e2_share(reps);
+  uint32_t acc = 0u;
+  if (o < n) {
+    int i0 = idx[o], j = part * share, j1 = min(reps, j + share);
+    bool steps = e2_steps(i0, reps);
+    const int* col = table + o % cols;
+    int r = mod_floor(add_wrap(i0, j), depth);
+    for (; j < j1; j += kE2Batch) {
+      uint32_t v[kE2Batch];
+#pragma unroll
+      for (int b = 0; b < kE2Batch; ++b) {
+        v[b] = 0u;
+        if (j + b < j1) {
+          if (!steps) r = mod_floor(add_wrap(i0, j + b), depth);
+          asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v[b]) : "l"(col + (size_t)r * cols));
+          r = r + 1 == depth ? 0 : r + 1;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kE2Batch; ++b) acc += v[b];
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < kE2Lanes; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0 && o < n) out[o] = (int)acc;
 }
 
 // E3: hits[k] = sum_{j<rounds} sum_{i<u} (rows[k, (w[k]+j+i) mod W] >>
@@ -187,23 +230,56 @@ e4_transpose_kernel(const int* __restrict__ x, int* __restrict__ out, int R, int
   }
 }
 
-// E5: while max(v[:, 0]) > 0 { i += 1; v -= 1 }, then out = v + i. One
-// block holds the (R, C) tile in registers, one element a thread; the loop
-// condition is a block-wide OR over column 0 (__syncthreads_or), so the
-// trip count is the data's. trips gets i.
-__global__ void e5_while_kernel(const int* __restrict__ x, int* __restrict__ out,
-                                int* __restrict__ trips, int R, int C) {
-  int e = threadIdx.x;
-  bool in = e < R * C;
-  uint32_t v = in ? (uint32_t)x[e] : 0u;
-  bool col0 = in && e % C == 0;
-  uint32_t i = 0;
-  while (__syncthreads_or(col0 && (int)v > 0)) {
-    ++i;
-    v -= 1u;
+// E5: while max(v[:, 0]) > 0 { i += 1; v -= 1 }, then out = v + i; trips
+// gets i. What bounds it: the trips, each a dependent chain (decrement,
+// compare, OR over column 0, branch) on a 4 KB tile; a block of one element a
+// thread ended each trip in a barrier of 32 warps (~82 ns a trip). So one
+// warp holds the tile in registers, element e = lane + 32 q in slot q, and
+// column 0 apart: row r = lane + 32 k in column slot k, for the warp-uniform
+// e5_rows(R) slots (a lane past the last row holds row 0's value, whose
+// trips are row 0's, so the OR needs no mask). A trip decrements the column
+// slots, ORs (int)v > 0 over them in the lane and decides by __any_sync: no
+// barrier, no shared memory. The loop reads only column 0, so the other
+// elements are not decremented in it: their v after i trips is x - i, taken
+// after the loop. Values are uint32 (wrap), compared as int. Arrays are
+// indexed by constants only (unrolled), so they stay in registers. Testing
+// the tile's own slots under a per-lane mask of column 0 (all 8 in lane 0
+// at C = 128), or 4 warps meeting at a named barrier, measured 4-9x slower
+// a trip (PERF.md). The slot layout is mirrored in tests/test_torch_prims.py.
+constexpr int kE5Slots = 32;  // 1024 elements over 32 lanes
+
+__device__ __forceinline__ int e5_rows(int R) {
+  return (R + 31) / 32;
+}
+
+__global__ void __launch_bounds__(32)
+e5_while_kernel(const int* __restrict__ x, int* __restrict__ out, int* __restrict__ trips,
+                int R, int C) {
+  int lane = threadIdx.x, n = R * C, rows = e5_rows(R);
+  uint32_t v[kE5Slots], c0[kE5Slots];
+  bool p = false;
+#pragma unroll
+  for (int q = 0; q < kE5Slots; ++q) {
+    int s = lane + 32 * q;  // element s of the tile, row s of column 0
+    v[q] = s < n ? (uint32_t)x[s] : 0u;
+    c0[q] = q < rows ? (uint32_t)x[(size_t)(s < R ? s : 0) * C] : 0u;
+    p |= q < rows && (int)c0[q] > 0;
   }
-  if (in) out[e] = (int)(v + i);
-  if (e == 0) *trips = (int)i;
+  uint32_t i = 0u;
+  while (__any_sync(0xffffffffu, p)) {
+    ++i;
+    p = false;
+#pragma unroll
+    for (int k = 0; k < kE5Slots; ++k) {
+      if (k >= rows) break;
+      c0[k] -= 1u;
+      p |= (int)c0[k] > 0;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kE5Slots; ++q)
+    if (lane + 32 * q < n) out[lane + 32 * q] = (int)(v[q] - i + i);
+  if (lane == 0) *trips = (int)i;
 }
 
 extern "C" int rmcl_e1_row_fetch(const int* table, const int* sidx, int* out, int K, int S,
@@ -223,8 +299,11 @@ extern "C" int rmcl_e1_row_fetch(const int* table, const int* sidx, int* out, in
 
 extern "C" int rmcl_e2_gather(const int* table, const int* idx, int* out, int n, int cols,
                               int depth, int reps, cudaStream_t stream) {
+  if (reps < 1 || depth < 1 || cols < 1) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    e2_gather_kernel<<<(n + 127) / 128, 128, 0, stream>>>(table, idx, out, n, cols, depth, reps);
+    long long threads = (long long)n * kE2Lanes;
+    e2_gather_kernel<<<(unsigned)((threads + 127) / 128), 128, 0, stream>>>(table, idx, out, n,
+                                                                              cols, depth, reps);
   }
   return (int)cudaGetLastError();
 }
@@ -252,7 +331,7 @@ extern "C" int rmcl_e4_transpose(const int* x, int* out, int R, int C, int reps,
 
 extern "C" int rmcl_e5_while(const int* x, int* out, int* trips, int R, int C,
                              cudaStream_t stream) {
-  // one block of R*C <= 1024 threads (checked by the wrapper), whole warps
-  e5_while_kernel<<<1, ((R * C + 31) / 32) * 32, 0, stream>>>(x, out, trips, R, C);
+  if (R < 1 || C < 1 || R * C > 32 * kE5Slots) return (int)cudaErrorInvalidValue;
+  e5_while_kernel<<<1, 32, 0, stream>>>(x, out, trips, R, C);
   return (int)cudaGetLastError();
 }

@@ -129,11 +129,14 @@ def e1_row_fetch(table, sidx, reps=REPS_IN):
 
 def e2_gather(table, idx, reps=REPS_IN):
     """E2 on a (depth, C) table for (R, C) indices -> (R, C)."""
+    if reps < 1:
+        raise ValueError(f"E2: reps must be >= 1, got {reps}")
     if _on_cpu("E2", table=table, idx=idx):
         return e2_gather_plain(table, idx, reps)
-    if table.dim() != 2 or idx.dim() != 2 or idx.shape[1] != table.shape[1]:
-        raise ValueError(f"E2: table (depth, C) and idx (R, C), got {tuple(table.shape)}, "
-                         f"{tuple(idx.shape)}")
+    if (table.dim() != 2 or idx.dim() != 2 or idx.shape[1] != table.shape[1]
+            or min(table.shape) < 1):
+        raise ValueError(f"E2: table (depth >= 1, C >= 1) and idx (R, C), got "
+                         f"{tuple(table.shape)}, {tuple(idx.shape)}")
     out = torch.empty_like(idx)
     depth, cols = table.shape
     _launch("E2", "rmcl_e2_gather", table.device, table, idx, out, idx.numel(), cols, depth,
@@ -166,11 +169,11 @@ def e4_transpose(x, reps=REPS_IN):
 
 
 def e5_while(x):
-    """E5 on an (R, C) tile of at most 1024 elements -> (out, trips)."""
+    """E5 on an (R, C) tile of 1 to 1024 elements -> (out, trips)."""
     if _on_cpu("E5", x=x):
         return e5_while_plain(x)
-    if x.dim() != 2 or x.numel() > 1024:
-        raise ValueError(f"E5: x must be (R, C) with R*C <= 1024, got {tuple(x.shape)}")
+    if x.dim() != 2 or not 1 <= x.numel() <= 1024:
+        raise ValueError(f"E5: x must be (R, C) with 1 <= R*C <= 1024, got {tuple(x.shape)}")
     out = torch.empty_like(x)
     trips = torch.empty(1, dtype=torch.int32, device=x.device)
     _launch("E5", "rmcl_e5_while", x.device, x, out, trips, x.shape[0], x.shape[1])

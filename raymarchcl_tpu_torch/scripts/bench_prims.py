@@ -9,8 +9,10 @@ its plain version (exactly equal integers, or the script raises), then
 timed on the card alone (`kernel_ms`: n launches queued behind a spin
 kernel, between two CUDA events). One report line per probe with
 microseconds and millions of elements per second, as the JAX script
-prints. E0, the script's XLA `jnp.take` baseline, becomes
-the same loop of `torch.take`: the library yardstick, not a kernel.
+prints; E5 also at a tenth of its trips, for the time a trip, and on the
+card the launch floor (an empty `torch.cuda._sleep(0)` kernel). E0, the
+script's XLA `jnp.take` baseline, becomes the same loop of `torch.take`:
+the library yardstick, not a kernel.
 `--device cpu` runs the plain versions on the CPU and times them with the
 host clock, as a rehearsal.
 """
@@ -87,6 +89,8 @@ def inputs(device, seed=0):
     x5 = np.full((8, LANES), 5, np.int32)
     x5_timed = rng.integers(-3, E5_TRIPS, (8, LANES)).astype(np.int32)
     x5_timed[rng.integers(0, 8), 0] = E5_TRIPS
+    x5_short = x5_timed.copy()  # column 0 scaled to a tenth of the trips
+    x5_short[:, 0] //= 10
     return {
         "e0_table": t(np.arange(S * LANES, dtype=np.uint32).view(np.int32)),
         "e0_idx": t(rng.integers(0, S * LANES, K)).long(),  # torch.take's index type
@@ -101,12 +105,16 @@ def inputs(device, seed=0):
         "e4_x": t(np.arange(K * LANES).reshape(K, LANES)),
         "e5_x": t(x5),
         "e5_x_timed": t(x5_timed),
+        "e5_x_short": t(x5_short),
     }
 
 
 def run(device="cuda", n=20, log=print):
     """Check and time E0-E5 on `device`. Returns {probe: {"us", "elems",
-    "mps"}}: microseconds per call over n calls (best_seconds)."""
+    "mps"}}: microseconds per call over n calls (best_seconds); "E5/short"
+    is E5 at a tenth of the trips, res["E5"]["ns_per_trip"] the time a trip
+    from the two, and on a card "floor" the launch floor (an empty
+    `torch.cuda._sleep(0)` kernel, timed the same way)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to rehearse on the CPU")
@@ -116,7 +124,7 @@ def run(device="cuda", n=20, log=print):
     def report(key, name, fn, elems):
         dt = best_seconds(fn, device, n)
         res[key] = {"us": dt * 1e6, "elems": elems, "mps": elems / dt / 1e6}
-        log(f"  {name:34s} {dt * 1e6:9.1f} us  {elems / dt / 1e6:10.1f} M/s")
+        log(f"  {name:34s} {dt * 1e6:9.2f} us  {elems / dt / 1e6:10.1f} M/s")
 
     log(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
     table0, idx0 = x["e0_table"], x["e0_idx"]
@@ -136,9 +144,9 @@ def run(device="cuda", n=20, log=print):
                   table[(sidx.long() + REPS_IN - 1) % S])
     report("E1", "E1 row fetch loop (rows/s)", lambda: prims.e1_row_fetch(table, sidx),
            K * REPS_IN)
-    log(f"  {'   as bits staged (bit/s)':34s} {res['E1']['us']:9.1f} us  "
+    log(f"  {'   as bits staged (bit/s)':34s} {res['E1']['us']:9.2f} us  "
         f"{K * REPS_IN * 4096 / res['E1']['us']:10.1f} M/s")
-    log(f"  {'   row bytes of all rounds (MB/s)':34s} {res['E1']['us']:9.1f} us  "
+    log(f"  {'   row bytes of all rounds (MB/s)':34s} {res['E1']['us']:9.2f} us  "
         f"{K * REPS_IN * LANES * 4 / res['E1']['us']:10.1f} M/s")
 
     for d in E2_DEPTHS:
@@ -156,19 +164,33 @@ def run(device="cuda", n=20, log=print):
     require_equal("E4", prims.e4_transpose(xt), prims.e4_transpose_plain(xt))
     report("E4", "E4 transpose (K,128)->(128,K)", lambda: prims.e4_transpose(xt),
            K * LANES * REPS_IN)
-    log(f"  {'   shared-memory bytes read (MB/s)':34s} {res['E4']['us']:9.1f} us  "
+    log(f"  {'   shared-memory bytes read (MB/s)':34s} {res['E4']['us']:9.2f} us  "
         f"{K * LANES * 4 * REPS_IN / res['E4']['us']:10.1f} M/s")
 
-    for key, xs in (("E5", x["e5_x"]), ("E5/timed", x["e5_x_timed"])):
+    n_trips = {}
+    for key, xs in (("E5", x["e5_x"]), ("E5/timed", x["e5_x_timed"]),
+                    ("E5/short", x["e5_x_short"])):
         out, trips = prims.e5_while(xs)
         want, want_trips = prims.e5_while_plain(xs)
         require_equal(key, out, want)
         require_equal(f"{key} trips", trips, want_trips)
+        n_trips[key] = int(want_trips[0])
         if key == "E5":
             log(f"  E5 while_loop in kernel: OK (out[0,0]={int(out[0, 0])}, "
                 f"trips {int(trips[0])})")
-    report("E5", f"E5 while_loop, {int(want_trips[0])} trips (trips/s)",
-           lambda: prims.e5_while(x["e5_x_timed"]), int(want_trips[0]))
+    report("E5", f"E5 while_loop, {n_trips['E5/timed']} trips (trips/s)",
+           lambda: prims.e5_while(x["e5_x_timed"]), n_trips["E5/timed"])
+    report("E5/short", f"E5 while_loop, {n_trips['E5/short']} trips (trips/s)",
+           lambda: prims.e5_while(x["e5_x_short"]), n_trips["E5/short"])
+    ns = (res["E5"]["us"] - res["E5/short"]["us"]) * 1e3 / (n_trips["E5/timed"] -
+                                                             n_trips["E5/short"])
+    res["E5"]["ns_per_trip"] = ns
+    log(f"  {'   ns a trip (the difference)':34s} {ns:9.2f} ns")
+    if device.type == "cuda":
+        # the launch floor: an empty spin kernel, timed as the probes are
+        floor_us = kernel_ms(lambda: torch.cuda._sleep(0), n) * 1e3
+        res["floor"] = {"us": floor_us}
+        log(f"  {'launch floor torch.cuda._sleep(0)':34s} {floor_us:9.2f} us")
     return res
 
 

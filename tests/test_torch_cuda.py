@@ -194,3 +194,52 @@ def test_e4_cuda_ragged_equal_plain(cuda_device, reps):
         torch.cuda.synchronize()
         assert prims.LAUNCHES["E4"] == before + 1
         assert torch.equal(got, prims.e4_transpose_plain(x, reps)), tuple(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (5, 37), (1, 1), (33, 200)])
+def test_e2_cuda_ragged_equal_plain(cuda_device, shape):
+    """E2's lanes-an-output schedule at shapes other than the script's
+    (one output, partial warps and blocks), depths 1, 8 and 4096, reps 1, 7
+    and 64, and start rows that are random, negative and near INT32_MAX
+    (where idx + j wraps): exactly the plain version, one launch each."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    for depth in (1, 8, 4096):
+        table = torch.from_numpy(rng.integers(-2**31, 2**31, (depth, shape[1]))
+                                 .astype(np.int32)).to(cuda_device)
+        starts = {"random": rng.integers(0, depth, shape),
+                  "negative": rng.integers(-2**31, 0, shape),
+                  "near_max": 2**31 - 1 - rng.integers(0, 80, shape)}
+        for kind, idx in starts.items():
+            idx = torch.from_numpy(idx.astype(np.int32)).to(cuda_device)
+            for reps in (1, 7, 64):
+                before = prims.LAUNCHES["E2"]
+                got = prims.e2_gather(table, idx, reps)
+                torch.cuda.synchronize()
+                assert prims.LAUNCHES["E2"] == before + 1
+                assert torch.equal(got, prims.e2_gather_plain(table, idx, reps)), \
+                    (depth, kind, reps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128), (37, 27), (1, 1), (1024, 1), (32, 32)])
+def test_e5_cuda_shapes_equal_plain(cuda_device, shape):
+    """E5's one-warp loop at tiles other than the script's, with 0, 1 and
+    1000 trips and INT32_MIN outside column 0 (it wraps in the loop):
+    exactly the plain version's output and trips, one launch each."""
+    r, c = shape
+    rng = np.random.default_rng(r * c)
+    for trips in (0, 1, 1000):
+        xs = rng.integers(-2**31, 2**31, shape)
+        xs[:, 0] = rng.integers(-50, trips + 1, r)
+        xs[rng.integers(0, r), 0] = trips
+        if c > 1:
+            xs[rng.integers(0, r), 1 + rng.integers(0, c - 1)] = -2**31
+        x = torch.from_numpy(xs.astype(np.int32)).to(cuda_device)
+        before = prims.LAUNCHES["E5"]
+        out, n = prims.e5_while(x)
+        torch.cuda.synchronize()
+        assert prims.LAUNCHES["E5"] == before + 1
+        want, want_n = prims.e5_while_plain(x)
+        assert int(want_n[0]) == trips
+        assert torch.equal(n, want_n) and torch.equal(out, want), trips

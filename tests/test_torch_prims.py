@@ -9,6 +9,7 @@ body adds int32 or uint32. On the CPU each wrapper runs its plain version
 and counts no launch; the kernels themselves are compared with their plain
 versions on a GPU (test_torch_cuda.py, chip_smoke.py)."""
 
+import functools
 import os
 import re
 
@@ -117,13 +118,23 @@ def test_e4_transpose(x):
     assert (got == np.int32(np.int64(64 * (2**26 + 3)) - 2**32)).all()
 
 
-@pytest.mark.parametrize("case", ["script", "random", "none"])
+def _e5_cases(rng):
+    cases = {"script": np.full((8, LANES), 5), "random": rng.integers(-50, 300, (8, LANES)),
+             "none": rng.integers(-9, 1, (8, LANES))}
+    zero_col0 = rng.integers(-9, 300, (8, LANES))  # the other columns do not count
+    zero_col0[:, 0] = rng.integers(-9, 1, 8)
+    single_one = zero_col0.copy()
+    single_one[5, 0] = 1
+    return {**cases, "zero_col0": zero_col0, "single_one": single_one}
+
+
+@pytest.mark.parametrize("case", ["script", "random", "none", "zero_col0", "single_one"])
 def test_e5_while(case):
     """bench_pallas_prims.py:200-208: while max(v[:, :1]) > 0: i += 1,
-    v -= 1; out = v + i. The trip count is max(0, max x[:, 0])."""
-    rng = np.random.default_rng(5)
-    xs = {"script": np.full((8, LANES), 5), "random": rng.integers(-50, 300, (8, LANES)),
-          "none": rng.integers(-9, 1, (8, LANES))}[case].astype(np.int32)
+    v -= 1; out = v + i. The trip count is max(0, max x[:, 0]): 0 where
+    column 0 is all <= 0 (whatever the other columns hold), 1 where its
+    largest value is a single 1."""
+    xs = _e5_cases(np.random.default_rng(5))[case].astype(np.int32)
     v, i = xs.copy(), 0
     while np.max(v[:, :1]) > 0:
         i, v = i + 1, v - 1
@@ -287,7 +298,163 @@ def test_bench_entry_point_cpu_rehearsal():
     the CPU (a few timed calls)."""
     lines = []
     res = bench_prims.run("cpu", n=1, log=lines.append)
-    assert set(res) == {"E0", "E1", "E3", "E4", "E5"} | {f"E2/{d}" for d in prims.E2_DEPTHS}
+    assert set(res) == ({"E0", "E1", "E3", "E4", "E5", "E5/short"}
+                        | {f"E2/{d}" for d in prims.E2_DEPTHS})
+    assert res["E5/short"]["elems"] == 100 and res["E5"]["elems"] == 1000
     assert lines[0] == "device: cpu"
     assert any("E5 while_loop in kernel: OK (out[0,0]=5, trips 5)" in ln for ln in lines)
     assert all(r["us"] > 0 and r["mps"] > 0 for r in res.values())
+
+
+INT32_MAX = 2**31 - 1
+
+
+@functools.cache
+def _device_expr(fn):
+    """The return expression of `__device__ ... fn(...)` in csrc/prims.cu,
+    compiled as Python (C's integer `/` on non-negative ints becomes `//`)."""
+    m = re.search(rf"\b{fn}\([^)]*\) \{{\s*return (.*?);", _prims_src(), re.S)
+    return compile(m.group(1).replace("/", "//"), f"prims.cu:{fn}", "eval")
+
+
+@functools.cache
+def _e2_consts():
+    """(kE2Lanes, kE2Batch) as csrc/prims.cu declares them."""
+    m = re.search(r"constexpr int kE2Lanes = (\d+), kE2Batch = (\d+);", _prims_src())
+    return int(m.group(1)), int(m.group(2))
+
+
+def e2_lane_rounds(i0, reps, depth, part, lanes, batch):
+    """csrc/prims.cu e2_gather_kernel, lane `part` of the `lanes` sharing an
+    output with start row i0: the (round j, table row) it loads, in order.
+    e2_share and e2_steps are evaluated as written there."""
+    env = {"kE2Lanes": lanes, "INT32_MAX": INT32_MAX}
+    share = eval(_device_expr("e2_share"), env, {"reps": reps})
+    steps = eval(_device_expr("e2_steps"), env, {"i0": i0, "reps": reps})
+    j, j1 = part * share, min(reps, part * share + share)
+    r = int(prims._wrap(i0 + j)) % depth  # the lane's one floor modulo
+    loads = []
+    while j < j1:
+        for b in range(batch):
+            if j + b < j1:
+                if not steps:
+                    r = int(prims._wrap(i0 + j + b)) % depth
+                loads.append((j + b, r))
+                r = 0 if r + 1 == depth else r + 1
+        j += batch
+    return loads
+
+
+def _e2_starts(rng):
+    """Start rows: near INT32_MAX (every overflow boundary of reps <= 64),
+    negative ones down to INT32_MIN, and small ones."""
+    return np.concatenate([INT32_MAX - np.arange(70), [-2**31, -2**31 + 1, -4097, -3, -1],
+                           rng.integers(-2**31, 0, 8), [0, 1, 2, 4095, 4096],
+                           rng.integers(0, 2**31, 8)])
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8, 4096])
+@pytest.mark.parametrize("reps", [1, 7, 64])
+@pytest.mark.parametrize("lanes", [1, 4, 16, 32])
+def test_e2_lane_schedule(lanes, reps, depth):
+    """E2's schedule, as the kernel runs it for `lanes` lanes an output:
+    every round is loaded by exactly one lane of the group, from row
+    (idx + j) mod depth of int32-wrapped idx + j (the +1 steps with their
+    wrap, and the per-round formula past the int32 overflow), and never more
+    than kE2Batch loads are held before they are summed."""
+    batch = _e2_consts()[1]
+    starts = _e2_starts(np.random.default_rng(reps * depth))
+    for i0 in starts.tolist():
+        loads = [ld for part in range(lanes)
+                 for ld in e2_lane_rounds(i0, reps, depth, part, lanes, batch)]
+        assert sorted(j for j, _ in loads) == list(range(reps)), (i0, reps)
+        for j, r in loads:
+            assert r == int(prims._wrap(i0 + j)) % depth, (i0, j, depth)
+
+
+def test_e2_groups_within_a_warp():
+    """The kernel's lanes an output: a power of two that divides a warp, so
+    that a group's shuffles stay in its warp; over a grid of 128-thread
+    blocks every output gets exactly that many lanes and threads past the
+    last output none."""
+    lanes, _ = _e2_consts()
+    assert 1 <= lanes <= 32 and lanes & (lanes - 1) == 0
+    for n in (1, 5, 1024, 6600):
+        t = np.arange(-(-n * lanes // 128) * 128)
+        o = t // lanes
+        counts = np.bincount(o[o < n], minlength=n)
+        assert (counts == lanes).all()
+        assert (t[o < n] // 32 == (o[o < n] * lanes) // 32).all()  # one warp a group
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8, 4096])
+@pytest.mark.parametrize("kind", ["near_max", "negative"])
+def test_e2_plain_wrapping_starts(kind, depth):
+    """The plain E2 at start rows near INT32_MAX (idx + j wraps to
+    negative) and negative ones, against the Pallas body's transcription."""
+    rng = np.random.default_rng(depth)
+    if kind == "near_max":
+        idx = INT32_MAX - rng.integers(0, 80, (8, LANES))
+    else:
+        idx = rng.integers(-2**31, 0, (8, LANES))
+        idx[0, :3] = [-2**31, -1, -depth]
+    idx = idx.astype(np.int32)
+    table = rng.integers(-2**31, 2**31, (depth, LANES)).astype(np.int32)
+    np.testing.assert_array_equal(prims.e2_gather(_t(table), _t(idx)).numpy(),
+                                  _e2_numpy(table, idx, depth))
+
+
+def test_e2_reps_checked(x):
+    with pytest.raises(ValueError, match="reps"):
+        prims.e2_gather(x["e2_table_8"], x["e2_idx_8"], 0)
+
+
+def _e5_slots():
+    m = re.search(r"constexpr int kE5Slots = (\d+);", _prims_src())
+    return int(m.group(1))
+
+
+def e5_layout(R, C):
+    """csrc/prims.cu e5_while_kernel's layout: ({(lane, slot): element} of
+    the tile, {(lane, column slot): row} of the column-0 slots each lane
+    decrements, for k < e5_rows(R) as written there; a lane past the last
+    row holds row 0 there)."""
+    slots, rows = _e5_slots(), eval(_device_expr("e5_rows"), {}, {"R": R})
+    tile = {(lane, q): lane + 32 * q for lane in range(32) for q in range(slots)
+            if lane + 32 * q < R * C}
+    col = {(lane, k): lane + 32 * k if lane + 32 * k < R else 0
+           for lane in range(32) for k in range(rows)}
+    return tile, col
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (37, 27), (1, 1), (1024, 1), (32, 32)])
+def test_e5_slot_layout(shape):
+    """E5's one-warp layout: every element of the tile in exactly one slot
+    of one lane, every column-0 element (row r) in exactly one lane's column
+    slots (the others there repeat row 0), and the loop run on that layout
+    (decrement the column slots, OR within the lane, vote across lanes)
+    gives the plain version's trips and output, with INT32_MIN outside
+    column 0."""
+    R, C = shape
+    tile, col = e5_layout(R, C)
+    assert sorted(tile.values()) == list(range(R * C))
+    held = [r for (lane, k), r in col.items() if lane + 32 * k < R]
+    assert sorted(held) == list(range(R))
+    assert all(r == 0 for (lane, k), r in col.items() if lane + 32 * k >= R)
+    rng = np.random.default_rng(R * C)
+    xs = rng.integers(-2**31, 2**31, (R, C)).astype(np.int32)
+    xs[:, 0] = rng.integers(-20, 30, R)
+    if C > 1:
+        xs[-1, 1] = -2**31
+    flat = xs.reshape(-1).astype(np.int64)
+    c0 = {s: int(flat[r * C]) for s, r in col.items()}
+    i = 0
+    while any(v > 0 for v in c0.values()):  # __any_sync over the lanes' ORs
+        i += 1
+        c0 = {s: int(prims._wrap(v - 1)) for s, v in c0.items()}
+    out = np.empty(R * C, np.int64)
+    for s, e in tile.items():
+        out[e] = prims._wrap(prims._wrap(flat[e] - i) + i)
+    want, trips = prims.e5_while_plain(_t(xs))
+    assert i == int(trips[0])
+    np.testing.assert_array_equal(out.reshape(R, C), want.numpy())
