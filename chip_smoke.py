@@ -4,19 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc, checks
-each against its plain PyTorch version on the card, checks the `gyroid-ao`
-golden image and the brick table of the 256^3 gyroid, shows that K2 over
-the brick table is bit-equal to K2 without it and that one K2 launch of a
-frame's 16 passes is bit-equal to 16 one-pass launches, then drives the two
-paths: the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit
-camera at theta=135, brick table on; one K2 and one K1 launch a frame)
+each against its plain PyTorch version on the card (K2 also at aoIter 16),
+checks the `gyroid-ao` golden image and the brick table of the 256^3
+gyroid, shows that K2 over the brick table is bit-equal to K2 without it,
+that one K2 launch of a frame's 16 passes is bit-equal to 16 one-pass
+launches and that the image K2 packs in its epilogue (K1's function) is
+bit-equal to K1's plain version of its accum, then drives the two paths:
+the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
+theta=135, brick table on; one K2 launch a frame, which packs the image)
 through ops.render.render_image, timed with and without the brick table,
-and the primitive probes E1-E5 through raymarchcl_tpu_torch.scripts.
-bench_prims, with checks that E1's rounds, E4's reps and E5's trips cost
-time, their library yardsticks and the launch floor. K2's counting build
-gives the march samples of its bound and its loops' active-lane shares. One
-line per phase; the second-to-last line is a JSON object with one entry per
-kernel, the last line the JSON result.
+K2 timed with and without the pack, and the primitive probes E1-E5 through
+raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's rounds,
+E3's probes, E4's reps and E5's trips cost time, their library yardsticks
+and the launch floor. K2's counting build gives the march samples of its
+bound and its loops' active-lane shares. One line per phase; the
+second-to-last line is a JSON object with one entry per kernel, the last
+line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -26,6 +29,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -229,6 +233,8 @@ def main():
     k2_err = k2_case("gyroid-ao golden case 64x48 2spp vres48", g.pop("vres"), 7, **g)
     k2_err = max(k2_err, k2_case("128x128 2spp vres64 default budgets", 64, 0,
                      width=128, height=128, iter=2, mat="ao"))
+    k2_err = max(k2_err, k2_case("64x48 1spp vres48 aoIter 16", 48, 3, width=64, height=48,
+                                 iter=1, mat="ao", aoIter=16))
 
     # -- 4. the golden image on the card --------------------------------------
     from PIL import Image
@@ -305,6 +311,16 @@ def main():
     require(torch.equal(a_frame, a_single), "16-pass launch differs from 16 one-pass launches")
     log(f"K2 one launch of 16 passes vs 16 one-pass launches at 512^2: bit-equal "
         f"({opts.num_pixels} px)")
+    # K1's pack as K2's epilogue, at a frame whose sides are no multiple of
+    # the 8x4 warp tile
+    o = render_options(width=100, height=37, iter=2, **main_kw)
+    a_r, argb_r = torch.zeros((o.num_pixels, 3), device=dev), torch.zeros(
+        o.num_pixels, dtype=torch.int32, device=dev)
+    k2.render_passes(vol, o, tables[:2], times[:2], a_r, bricks, argb_r)
+    require(torch.equal(argb_r, k1.tonemap_pack_plain(a_r, o.gamma)),
+            "K2's packed image at 100x37 differs from K1's plain pack of its accum")
+    log(f"K2's fused pack at 100x37, 2 passes: bit-equal to K1's plain pack of the accum "
+        f"({o.num_pixels} px)")
     march.SAMPLES = 0
     t0 = time.perf_counter()
     a_plain = zero.clone()
@@ -326,17 +342,23 @@ def main():
     # -- 7. the main path, with the brick table; then without it -------------
     render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
     torch.cuda.synchronize()
-    k1.LAUNCHES = 0
-    k2.LAUNCHES = 0
+    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = 0
     frames, argb, accum = timed_frames(render_mod, vol, opts, tables, bricks)
-    launches = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES}
+    launches, packs = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES}, k2.PACKS
     frame_s = sorted(frames)[1]
     digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
+    argb_digest = hashlib.sha256(argb.tobytes()).hexdigest()
     log(f"main path (brick table): frames {['%.4f' % f for f in frames]} s, median "
-        f"{frame_s:.4f} s; launches {launches}; accum sha256 {digest}")
-    require(launches == {"K1": 3, "K2": 3},
-            f"expected 1 K2 + 1 K1 launch per frame over 3 frames, got {launches}")
+        f"{frame_s:.4f} s; launches {launches}, packs in K2 {packs}; accum sha256 {digest}; "
+        f"argb sha256 {argb_digest}")
+    require(launches == {"K1": 0, "K2": 3} and packs == 3,
+            f"expected 1 K2 launch a frame, packing the image, over 3 frames, got {launches} "
+            f"and {packs} packs")
     require(torch.equal(accum, a_frame), "main path accum differs from the checked frame")
+    plain_argb = k1.tonemap_pack_plain(accum, opts.gamma).cpu().numpy().view(np.uint32)
+    require(np.array_equal(argb.reshape(-1), plain_argb),
+            "main path image differs from K1's plain pack of its accum")
+    log("main path image: bit-equal to K1's plain pack of the accum")
     require(bool(torch.isfinite(accum).all()), "main path accum not finite")
     require(bool(((argb >> 24) == 0xFF).all()), "main path alpha bytes not all 0xFF")
     n_colors = len(np.unique(argb))
@@ -347,20 +369,29 @@ def main():
     frame_raw_s = sorted(frames_raw)[1]
     require(torch.equal(accum, accum_raw), "main path frame differs without the brick table")
     # K2 alone, a frame per launch: the passes blend into acc_k, whose
-    # values do not matter here
-    def k2_frame(a):
-        return lambda: k2.render_passes(vol, opts, tables, times, acc_k, a)
+    # values do not matter here; with the pack into argb_k, or without
+    n_px = opts.num_pixels
+    argb_k = torch.empty(n_px, dtype=torch.int32, device=dev)
 
-    k2_ms1 = bench_prims.kernel_ms(k2_frame(bricks), 4)
-    k2_raw_ms = bench_prims.kernel_ms(k2_frame(None), 4)
-    k2_ms2 = bench_prims.kernel_ms(k2_frame(bricks), 4)
-    k2_ms = (k2_ms1 + k2_ms2) / 2
-    busy = (k2_ms + k1_ms) / (frame_s * 1e3)
+    def k2_frame(a, pack):
+        return lambda: k2.render_passes(vol, opts, tables, times, acc_k, a,
+                                        argb_k if pack else None)
+
+    k2_ms1 = bench_prims.kernel_ms(k2_frame(bricks, False), 4)
+    k2_pack1 = bench_prims.kernel_ms(k2_frame(bricks, True), 4)
+    k2_raw_ms = bench_prims.kernel_ms(k2_frame(None, True), 4)
+    k2_pack2 = bench_prims.kernel_ms(k2_frame(bricks, True), 4)
+    k2_ms2 = bench_prims.kernel_ms(k2_frame(bricks, False), 4)
+    k2_ms, k2_pack_ms = (k2_ms1 + k2_ms2) / 2, (k2_pack1 + k2_pack2) / 2
+    fused_ms = k2_pack_ms - k2_ms
+    busy = k2_pack_ms / (frame_s * 1e3)
     log(f"main path without the brick table: frames {['%.4f' % f for f in frames_raw]} s, "
-        f"median {frame_raw_s:.4f} s; bit-equal accum. K2 per frame (16 passes) at 512^2: "
-        f"{k2_ms1:.4f} and {k2_ms2:.4f} ms with the brick table (before and after; "
-        f"{k2_ms / 16:.4f} ms a pass), {k2_raw_ms:.4f} ms without ({k2_raw_ms / 16:.4f}); "
-        f"(K2 + K1) device time over the median frame: {busy:.4f}")
+        f"median {frame_raw_s:.4f} s; bit-equal accum. K2 per frame (16 passes) at 512^2 "
+        f"with the brick table: {k2_ms1:.4f}, {k2_ms2:.4f} ms without the pack (first and "
+        f"last), {k2_pack1:.4f}, {k2_pack2:.4f} ms with it (the main path's; "
+        f"{k2_pack_ms / 16:.4f} ms a pass); the fused pack's cost {fused_ms:.5f} ms; "
+        f"{k2_raw_ms:.4f} ms without the table ({k2_raw_ms / 16:.4f}); K2 device time over "
+        f"the median frame: {busy:.4f}")
 
     # -- 8. the primitive probes E1-E5 through their entry point -------------
     for name in prims.LAUNCHES:
@@ -386,6 +417,14 @@ def main():
         require(e_err[key] == 0, f"{key} differs from its plain version")
         e_plain_ms[key] = cuda_ms(lambda: getattr(prims, fn + "_plain")(*args), 3)
     table, sidx = x["e1_table"], x["e1_sidx"]
+    rows3, w3, b3 = x["e3_rows"], x["e3_w"], x["e3_b"]
+    e3_64 = bench_prims.kernel_ms(lambda: prims.e3_probe(rows3, w3, b3, reps=64), 50)
+    e3_1024 = bench_prims.kernel_ms(lambda: prims.e3_probe(rows3, w3, b3, reps=1024), 50)
+    e3_src = open(os.path.join(build.CSRC_DIR, "prims.cu")).read()
+    e3_lanes = int(re.search(r"constexpr int kE3Lanes = (\d+)", e3_src).group(1))
+    log(f"E3 time by reps ({e3_lanes} lanes a ray): 64 -> {e3_64 * 1e3:.2f} us, 1024 -> "
+        f"{e3_1024 * 1e3:.2f} us (x{e3_1024 / e3_64:.2f})")
+    require(e3_1024 > 1.5 * e3_64, "E3's probes do not cost time: were they folded?")
     e1_16 = bench_prims.kernel_ms(lambda: prims.e1_row_fetch(table, sidx, 16), 50)
     e1_64 = bench_prims.kernel_ms(lambda: prims.e1_row_fetch(table, sidx, 64), 50)
     log(f"E1 time by REPS_IN: 16 -> {e1_16 * 1e3:.2f} us, 64 -> {e1_64 * 1e3:.2f} us "
@@ -435,14 +474,15 @@ def main():
     log(f"E1 rows staged {e1_rate / 1e12:.3f} TB/s; E4 shared memory read {e4_rate / 1e12:.3f} TB/s")
 
     # -- 9. the kernels line ---------------------------------------------------
-    n_px = opts.num_pixels
-    k1_bound = bound(n_px * 16, 0)
+    # K1 on its own reads accum and writes the image; fused, it writes the
+    # image from registers
+    k1_bound, k1_fused_bound = bound(n_px * 16, 0), bound(n_px * 4, 0)
     # a frame: the volume, 16 MC tables, the brick rows and the pass times
-    # read once, accum read and written; 9 operations per march sample the
-    # counting build took (the raw march's: the plain version's 1-pass
-    # count times 16)
-    k2_bytes = (vol.numel() + tables.numel() * 4 + 2 * n_px * 12 + bricks.rows.numel() * 4
-                + times.numel() * 4)
+    # read once, accum read and written, the image written; 9 operations per
+    # march sample the counting build took (the raw march's: the plain
+    # version's 1-pass count times 16)
+    k2_bytes = (vol.numel() + tables.numel() * 4 + 2 * n_px * 12 + n_px * 4
+                + bricks.rows.numel() * 4 + times.numel() * 4)
     k2_bound = bound(k2_bytes, k2_lanes["samples"] * OPS_PER_SAMPLE)
     k2_raw_bound = bound(k2_bytes - bricks.rows.numel() * 4,
                          16 * plain["raw"]["samples"] * OPS_PER_SAMPLE)
@@ -465,12 +505,17 @@ def main():
     log(f"E bounds count: E1 {e1_rows} of {prims.S} table rows, E2 {e2_elems} table "
         f"elements by depth, E3 {e3_words} of {k * lanes} row words, E5 {trips} trips")
     kernels = [
+        # the main path packs in K2's epilogue (`launches`: its packs); ms
+        # and bound_ms are the kernel on its own, which render.pack_argb runs
         kernel_entry("K1 tonemap_pack", "raymarchcl_tpu_torch/csrc/tonemap.cu",
-                     "raymarchcl_tpu/ops/kernels/tonemap_pallas.py:37", launches["K1"], k1_err,
-                     k1_ms, k1_plain_ms, k1_bound, None),
+                     "raymarchcl_tpu/ops/kernels/tonemap_pallas.py:37", packs, k1_err,
+                     k1_ms, k1_plain_ms, k1_bound, None, launches_standalone=launches["K1"],
+                     fused_in="raymarchcl_tpu_torch/csrc/render_pass.cu", fused_ms=fused_ms,
+                     bound_ms_fused=k1_fused_bound[0]),
         kernel_entry("K2 render_pass", "raymarchcl_tpu_torch/csrc/render_pass.cu",
-                     "raymarchcl_tpu/ops/render.py:56", launches["K2"], k2_err, k2_ms,
-                     plain_frame_ms, k2_bound, None, ms_per_pass=k2_ms / 16,
+                     "raymarchcl_tpu/ops/render.py:56", launches["K2"], k2_err, k2_pack_ms,
+                     plain_frame_ms, k2_bound, None, ms_per_pass=k2_pack_ms / 16,
+                     ms_without_pack=k2_ms,
                      ms_raw=k2_raw_ms, plain_ms_per_pass=plain["accel"]["ms"],
                      plain_ms_per_pass_raw=plain["raw"]["ms"], bound_ms_raw=k2_raw_bound[0],
                      samples=k2_lanes["samples"],
@@ -491,6 +536,8 @@ def main():
         if key == "E1":
             extra = dict(ms_reps16=e1_16, ms_reps64=e1_64, equal_reads_ms=e1_equal_ms,
                          row_bytes_per_s=e1_rate)
+        if key == "E3":
+            extra = dict(lanes_per_ray=e3_lanes, ms_reps64=e3_64, ms_reps1024=e3_1024)
         if key == "E4":
             extra = dict(ms_reps16=e4_16, ms_reps1024=e4_1024, smem_bytes_per_s=e4_rate)
         if key == "E5":
@@ -504,7 +551,7 @@ def main():
             {"E1": e1_lib_ms, "E4": e4_lib_ms}.get(key), **extra))
     log(json.dumps({"kernels": kernels, "launch_floor_ms": bench["floor"]["us"] / 1e3,
                     "frame_s": frame_s, "frame_raw_s": frame_raw_s,
-                    "busy_untraced": busy, "accum_sha256": digest,
+                    "busy_untraced": busy, "accum_sha256": digest, "argb_sha256": argb_digest,
                     "accel_build_s": t_accel, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -131,23 +131,76 @@ e2_gather_kernel(const int* __restrict__ table, const int* __restrict__ idx,
 }
 
 // E3: hits[k] = sum_{j<rounds} sum_{i<u} (rows[k, (w[k]+j+i) mod W] >>
-// ((b[k]+i) mod 32)) & 1. On the TPU the word select is a lane mask and a
-// lane max over the staged row; here a thread indexes its ray's row.
-__global__ void __launch_bounds__(256)
+// ((b[k]+i) mod 32)) & 1; on the TPU the word select is a lane mask and a
+// lane max over the staged row. What bounds it: not bytes (a ray reaches
+// rounds + u - 1 words of its row, 22 ns at the script's sizes) but the
+// launch and the latency of the probes' loads. One thread a ray ran its 64
+// probes one after another, each behind an integer division, on 4 SMs. So
+// kE3Lanes neighbouring lanes share a ray (16,384 threads at the script's
+// sizes, a block of 128 on every SM), and the ray's (round j, column i) probes
+// are dealt out as e3_cols(u) column slots by kE3Lanes / e3_cols(u) round
+// shares: lane `part` takes columns i = part mod cols, i + cols, ... < u and,
+// of each, the rounds of share part / cols (e3_share; the last share may be
+// shorter or empty). A column keeps its bit (b + i) mod 32 and takes one
+// floor modulo for its first word, then steps the word by +1 a round with a
+// wrap at W; where w + i + j would overflow int32 (e3_steps false) each
+// probe takes the formula. Loads go out in batches of kE3Batch (read-only
+// path, volatile) before their bits are added: every probe stays a load and
+// a bit test, none is folded into a popc over merged probes. The group's
+// sums meet by shuffles (uint32), threads past the last ray adding 0, and
+// the group's first lane stores. 32 lanes a ray measured the same; 8 lanes,
+// and the ray's words staged in shared memory first (as the TPU stages the
+// row in VMEM), slower (PERF.md). The schedule is mirrored in
+// tests/test_torch_prims.py.
+constexpr int kE3Lanes = 16, kE3Batch = 8;
+
+__device__ __forceinline__ int e3_cols(int u) {
+  return min(u, kE3Lanes);
+}
+
+__device__ __forceinline__ int e3_share(int rounds, int u) {
+  return (rounds + kE3Lanes / e3_cols(u) - 1) / (kE3Lanes / e3_cols(u));
+}
+
+__device__ __forceinline__ bool e3_steps(int v0, int n) {
+  return v0 <= INT32_MAX - (n - 1);
+}
+
+__global__ void __launch_bounds__(128)
 e3_probe_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ w,
                 const int* __restrict__ b, int* __restrict__ out, int K, int W, int rounds,
                 int u) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const uint32_t* row = rows + (size_t)k * W;
-  int wk = w[k], bk = b[k];
-  uint32_t hits = 0;
-  for (int j = 0; j < rounds; ++j)
-    for (int i = 0; i < u; ++i) {
-      uint32_t word = __ldg(&row[mod_floor(add_wrap(add_wrap(wk, j), i), W)]);
-      hits += (word >> mod_floor(add_wrap(bk, i), 32)) & 1u;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x, k = t / kE3Lanes;
+  int part = (int)(t % kE3Lanes), cols = e3_cols(u), h = part / cols;
+  int share = e3_share(rounds, u), j0 = h * share;
+  uint32_t acc = 0u;
+  if (k < K && h < kE3Lanes / cols && j0 < rounds) {
+    const uint32_t* row = rows + (size_t)k * W;
+    int wk = w[k], bk = b[k], j1 = j0 + min(share, rounds - j0);
+    for (int i = part % cols; i < u; i += cols) {
+      uint32_t bit = (uint32_t)add_wrap(bk, i) & 31u;
+      int v0 = add_wrap(add_wrap(wk, j0), i);
+      bool steps = e3_steps(v0, j1 - j0);
+      int r = mod_floor(v0, W);
+      for (int j = j0; j < j1; j += kE3Batch) {
+        uint32_t v[kE3Batch];
+#pragma unroll
+        for (int q = 0; q < kE3Batch; ++q) {
+          v[q] = 0u;
+          if (j + q < j1) {
+            if (!steps) r = mod_floor(add_wrap(add_wrap(wk, j + q), i), W);
+            asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v[q]) : "l"(row + r));
+            r = r + 1 == W ? 0 : r + 1;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kE3Batch; ++q) acc += (v[q] >> bit) & 1u;
+      }
     }
-  out[k] = (int)hits;
+  }
+#pragma unroll
+  for (int m = 1; m < kE3Lanes; m <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (part == 0 && k < K) out[k] = (int)acc;
 }
 
 // E4: out = sum_{j<reps} x^T, (R, C) -> (C, R). What bounds it: the reps'
@@ -310,8 +363,10 @@ extern "C" int rmcl_e2_gather(const int* table, const int* idx, int* out, int n,
 
 extern "C" int rmcl_e3_probe(const int* rows, const int* w, const int* b, int* out, int K,
                              int W, int rounds, int u, cudaStream_t stream) {
+  if (W < 1 || u < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
   if (K > 0) {
-    e3_probe_kernel<<<(K + 255) / 256, 256, 0, stream>>>(
+    long long threads = (long long)K * kE3Lanes;
+    e3_probe_kernel<<<(unsigned)((threads + 127) / 128), 128, 0, stream>>>(
         reinterpret_cast<const uint32_t*>(rows), w, b, out, K, W, rounds, u);
   }
   return (int)cudaGetLastError();

@@ -34,6 +34,12 @@
 //   tile, so its rays start close together; as many blocks as stay resident
 //   are launched, and each warp takes its next tile from a device counter
 //   until none is left, so the frame's tail is one tile long.
+// - K1's pack as the epilogue. After its pixel's last pass a thread holds
+//   the final accum in registers; when the call asks for the image it also
+//   stores the pixel's tonemapped ARGB word (pack_argb, rmcl_common.cuh), so
+//   a frame takes no K1 launch and never reads accum back.
+// - Any aoIter. The AO probes' distances and sample caps come beside the
+//   pass times (one copy a frame) and are read through the read-only path.
 //
 // A third instance (the counting build, never on the main path) counts,
 // per loop, warp iterations and the active lanes in them. Measured slower
@@ -67,6 +73,8 @@ struct Scene {
   const uint8_t* __restrict__ vol;
   const float4* __restrict__ table;  // this pass's MC table
   const int* __restrict__ rows;      // brick table (NB, rowWords) or null
+  const float* __restrict__ aoD;     // shade.ao_step_dist per AO probe (aoIter + 1)
+  const int* __restrict__ aoTrunc;   // shade.ao_trunc_steps per AO probe
   float time;                        // this pass's time
   Counts* counts;                    // the counting build's, else null
 };
@@ -344,11 +352,11 @@ __device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
   uint32_t seed0 = f2u32(fmaf(pos.z, 2945.87f, fmaf(pos.x, 3183.75f, pos.y * 1831.42f)) +
                          S.time * 2671.918f);
   for (int i = 0; i <= P.aoIter && ao > 0.01f; ++i) {
-    float d = P.aoD[i];
+    float d = __ldg(&S.aoD[i]);
     float4 j = rand_float4(S, seed0 + 37u * (uint32_t)(i + 1));
     V3f sn = normalize3({fmaf(j.x, 0.2f, n.x), fmaf(j.y, 0.2f, n.y), fmaf(j.z, 0.2f, n.z)});
     V3f rp = fma3(sn, d, pos);
-    SceneDist sd = distance_to_scene<K>(S, rp, sn, P.aoScale, P.aoTrunc[i], true,
+    SceneDist sd = distance_to_scene<K>(S, rp, sn, P.aoScale, __ldg(&S.aoTrunc[i]), true,
                                         intersects_box(P, rp, sn), false, kAoSamples);
     ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp / d, 0.0f));
   }
@@ -462,15 +470,19 @@ __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
   return apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
 }
 
-// Passes [0, npass) of tables (npass, tableLen) at times (npass,). Each warp
-// takes 8x4 pixel tiles from *next_tile until none is left; counts: the
+// Passes [0, npass) of tables (npass, tableLen) at times (npass,), AO probes
+// ao_d/ao_trunc. Each warp takes 8x4 pixel tiles from *next_tile until none
+// is left; argb: null, or the packed pixels of the final accum (K1's pack as
+// the epilogue: the thread holds its pixel's accum in registers); counts: the
 // counting build's (iterations, lanes) per loop, else null.
 template <class K>
 __global__ void __launch_bounds__(kThreads)
 render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
                      const float4* __restrict__ tables, const float* __restrict__ times,
+                     const float* __restrict__ ao_d, const int* __restrict__ ao_trunc,
                      int npass, const int* __restrict__ rows, float* __restrict__ accum,
-                     int* __restrict__ next_tile, unsigned long long* __restrict__ counts) {
+                     uint32_t* __restrict__ argb, int* __restrict__ next_tile,
+                     unsigned long long* __restrict__ counts) {
   const int lane = threadIdx.x & 31;
   const int tiles_x = (P.width + kTileW - 1) / kTileW;
   const int n_tiles = tiles_x * ((P.height + kTileH - 1) / kTileH);
@@ -487,8 +499,8 @@ render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __rest
       float* a = accum + 3 * (size_t)pid;
       float a0 = a[0], a1 = a[1], a2 = a[2];
       for (int p = 0; p < npass; ++p) {
-        const Scene S{P, vol, tables + (size_t)p * P.tableLen, rows, __ldg(&times[p]),
-                      K::kCount ? &c : nullptr};
+        const Scene S{P, vol, tables + (size_t)p * P.tableLen, rows, ao_d, ao_trunc,
+                      __ldg(&times[p]), K::kCount ? &c : nullptr};
         V3f col = pass_color<K>(S, pid, x, y);
         // render.render_pass blend: accum + (col*exposure - accum) * frameBlend
         a0 = fmaf(col.x * P.exposure - a0, P.frameBlend, a0);
@@ -498,6 +510,7 @@ render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __rest
       a[0] = a0;
       a[1] = a1;
       a[2] = a2;
+      if (argb) argb[pid] = pack_argb(a0, a1, a2, P.gamma);
     }
     __syncwarp();
   }
@@ -511,8 +524,8 @@ render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __rest
 
 template <class K>
 static int launch(const RmclParams* params, const uint8_t* vol, const float* tables,
-                  const float* times, int npass, const int* rows, float* accum, int* next_tile,
-                  unsigned long long* counts, cudaStream_t stream) {
+                  const float* times, int npass, const int* rows, float* accum, uint32_t* argb,
+                  int* next_tile, unsigned long long* counts, cudaStream_t stream) {
   auto kernel = render_passes_kernel<K>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -523,27 +536,35 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
   int tiles = ((params->width + kTileW - 1) / kTileW) * ((params->height + kTileH - 1) / kTileH);
   int warps = kThreads / 32;
   int blocks = std::min(std::max(per_sm, 1) * sms, (tiles + warps - 1) / warps);
+  // the AO probe table follows the pass times (render_pass.launch_block)
+  const float* ao_d = times + npass;
+  const int* ao_trunc = reinterpret_cast<const int*>(ao_d + params->aoIter + 1);
   kernel<<<blocks, kThreads, 0, stream>>>(*params, vol, reinterpret_cast<const float4*>(tables),
-                                          times, npass, rows, accum, next_tile, counts);
+                                          times, ao_d, ao_trunc, npass, rows, accum, argb,
+                                          next_tile, counts);
   return (int)cudaGetLastError();
 }
 
-// rows: the brick table, or null for the raw march; next_tile: one zeroed
-// int; counts: null, or 2*kCountedLoops zeroed uint64 for the counting
-// build (which needs the brick table)
+// times: each pass's time (npass floats), then the AO probe table of
+// aoIter + 1 distances (float) and aoIter + 1 sample caps (int); rows: the
+// brick table, or null for the raw march; argb: null, or width*height packed
+// pixels of the final accum (with npass == 0, of accum as given); next_tile:
+// one zeroed int; counts: null, or 2*kCountedLoops zeroed uint64 for the
+// counting build (which needs the brick table)
 extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
                                   const float* tables, const float* times, int npass,
-                                  const int* rows, float* accum, int* next_tile,
+                                  const int* rows, float* accum, uint32_t* argb, int* next_tile,
                                   unsigned long long* counts, cudaStream_t stream) {
-  if (npass <= 0 || params->width <= 0 || params->height <= 0) return 0;
+  if (npass < 0 || params->aoIter < 0) return (int)cudaErrorInvalidValue;
+  if ((npass == 0 && !argb) || params->width <= 0 || params->height <= 0) return 0;
   if (counts) {
     if (!rows) return (int)cudaErrorInvalidValue;
-    return launch<Build<true, true>>(params, vol, tables, times, npass, rows, accum, next_tile,
-                                     counts, stream);
+    return launch<Build<true, true>>(params, vol, tables, times, npass, rows, accum, argb,
+                                     next_tile, counts, stream);
   }
   if (rows)
-    return launch<Build<true, false>>(params, vol, tables, times, npass, rows, accum, next_tile,
-                                      nullptr, stream);
-  return launch<Build<false, false>>(params, vol, tables, times, npass, rows, accum, next_tile,
-                                     nullptr, stream);
+    return launch<Build<true, false>>(params, vol, tables, times, npass, rows, accum, argb,
+                                      next_tile, nullptr, stream);
+  return launch<Build<false, false>>(params, vol, tables, times, npass, rows, accum, argb,
+                                     next_tile, nullptr, stream);
 }

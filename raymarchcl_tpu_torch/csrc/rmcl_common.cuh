@@ -12,8 +12,9 @@
 
 // Options of one frame's passes, filled by ops/kernels/render_pass.py
 // (RmclParams there lists the same fields in the same order); each pass's
-// time goes to the kernel beside it. Derived constants are computed on the
-// host in float32 exactly as the plain version computes them.
+// time and the AO probe table (aoIter + 1 entries) go to the kernel beside
+// it (render_pass.launch_block). Derived constants are computed on the host
+// in float32 exactly as the plain version computes them.
 struct RmclParams {
   int width, height;
   int rx, ry, rz, rxy;
@@ -21,8 +22,6 @@ struct RmclParams {
   int tableLen;              // MC table entries (float4) of one pass
   int edge, brickShift, nbx, nby, rowWords;  // brick table (ops/accel.py); 0 without
   int aoSteps;               // maxVoxelIter / 2
-  int aoTrunc[16];           // shade.ao_trunc_steps per AO probe
-  float aoD[16];             // shade.ao_step_dist per AO probe
   float marchScale;          // 1 / (maxVoxelIter * 0.5)
   float aoScale;             // 1 / (aoSteps * 0.5)
   float shadowBaseStep;      // (2 / maxVoxelIter) * min(invVoxelScale * voxelBounds2)
@@ -32,7 +31,7 @@ struct RmclParams {
   float eyePos[3], targetPos[3], up[3], sky1[3], sky2[3];
   float invAspect, fov, maxDist, startDist, eps, aoAmp, groundY;
   float shadowBias, lightScatter, minLightAtt, exposure, dof, frameBlend;
-  float fogPow, flareAmp;
+  float fogPow, flareAmp, gamma;
   float lightPos[4][4], lightColor[4][4], matAlbedo[4][4], matR0[4], matSmooth[4];
 };
 
@@ -81,3 +80,18 @@ __device__ __forceinline__ V3f reflect3(V3f v, V3f n) {
 // sampling.f2u32: cvt.rzi.s32.f32 truncates, saturates and maps NaN to 0,
 // as XLA's float->int32 convert does
 __device__ __forceinline__ uint32_t f2u32(float x) { return (uint32_t)__float2int_rz(x); }
+
+// tonemap.tonemap_pack_plain for one channel: (c/(g+c))^2 * 255, clamped
+// before the cast as the Pallas body does; fmaxf(NaN, 0) = 0
+__device__ __forceinline__ uint32_t tonemap_channel(float c, float g) {
+  float t = c / (g + c);
+  t = t * t * 255.0f;
+  t = fminf(fmaxf(t, 0.0f), 255.0f);
+  return (uint32_t)__float2int_rz(t);
+}
+
+// tonemap.tonemap_pack_plain: one pixel's 0xAARRGGBB
+__device__ __forceinline__ uint32_t pack_argb(float r, float g, float b, float gamma) {
+  return 0xFF000000u | (tonemap_channel(r, gamma) << 16) | (tonemap_channel(g, gamma) << 8) |
+         tonemap_channel(b, gamma);
+}

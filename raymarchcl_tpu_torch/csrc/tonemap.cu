@@ -10,15 +10,11 @@
 // TPU kernel's SoA (64,128) tiles served the VPU lanes; here each thread
 // reads its pixel's three AoS floats, which neighbouring threads cover as
 // one contiguous span (coalesced), so no transpose or padding is needed.
+// On the main path the pack is not this kernel but the epilogue of K2's
+// last pass (csrc/render_pass.cu), which holds the final accum in registers:
+// no launch and no read of accum. This kernel packs an accum on its own
+// (render.pack_argb); both use pack_argb of rmcl_common.cuh.
 #include "rmcl_common.cuh"
-
-__device__ __forceinline__ uint32_t tonemap_channel(float c, float g) {
-  float t = c / (g + c);
-  t = t * t * 255.0f;
-  // clamp before the cast, as the Pallas body does; fmaxf(NaN, 0) = 0
-  t = fminf(fmaxf(t, 0.0f), 255.0f);
-  return (uint32_t)__float2int_rz(t);
-}
 
 __global__ void __launch_bounds__(256)
 tonemap_pack_kernel(const float* __restrict__ accum, uint32_t* __restrict__ out,
@@ -26,10 +22,7 @@ tonemap_pack_kernel(const float* __restrict__ accum, uint32_t* __restrict__ out,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float* c = accum + 3 * (size_t)i;
-  uint32_t r = tonemap_channel(c[0], gamma);
-  uint32_t g = tonemap_channel(c[1], gamma);
-  uint32_t b = tonemap_channel(c[2], gamma);
-  out[i] = 0xFF000000u | (r << 16) | (g << 8) | b;
+  out[i] = pack_argb(c[0], c[1], c[2], gamma);
 }
 
 extern "C" const char* rmcl_error_string(int err) {

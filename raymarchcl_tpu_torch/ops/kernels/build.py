@@ -104,7 +104,7 @@ def library() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         for name, args in (
             ("rmcl_tonemap_pack", [vp, vp, ctypes.c_float, i32]),
-            ("rmcl_render_passes", [vp, vp, vp, vp, i32, vp, vp, vp, vp]),
+            ("rmcl_render_passes", [vp, vp, vp, vp, i32, vp, vp, vp, vp, vp]),
             ("rmcl_e1_row_fetch", [vp, vp, vp, i32, i32, i32, i32]),
             ("rmcl_e2_gather", [vp, vp, vp, i32, i32, i32, i32]),
             ("rmcl_e3_probe", [vp, vp, vp, vp, i32, i32, i32, i32]),

@@ -145,13 +145,17 @@ def e2_gather(table, idx, reps=REPS_IN):
 
 
 def e3_probe(rows, w, b, u=E3_U, reps=REPS_IN):
-    """E3 on (K, W) rows and (K, 1) word and bit offsets -> (K, 1)."""
-    if _on_cpu("E3", rows=rows, w=w, b=b):
+    """E3 on (K, W) rows and (K, 1) or (K,) word and bit offsets -> (K, 1).
+    reps < u is zero rounds: all hits 0."""
+    if u < 1 or reps < 1:
+        raise ValueError(f"E3: u and reps must be >= 1, got u={u}, reps={reps}")
+    on_cpu = _on_cpu("E3", rows=rows, w=w, b=b)
+    k = rows.shape[0] if rows.dim() == 2 else -1
+    if k < 0 or rows.shape[1] < 1 or any(x.shape not in ((k, 1), (k,)) for x in (w, b)):
+        raise ValueError(f"E3: rows (K, W >= 1), w and b (K, 1) or (K,), got "
+                         f"{tuple(rows.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
+    if on_cpu:
         return e3_probe_plain(rows, w, b, u, reps)
-    k = rows.shape[0]
-    if rows.dim() != 2 or w.numel() != k or b.numel() != k:
-        raise ValueError(f"E3: rows (K, W), w and b (K, 1), got {tuple(rows.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(b.shape)}")
     out = torch.empty((k, 1), dtype=torch.int32, device=rows.device)
     _launch("E3", "rmcl_e3_probe", rows.device, rows, w, b, out, k, rows.shape[1], reps // u, u)
     return out

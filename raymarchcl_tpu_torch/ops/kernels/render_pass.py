@@ -23,8 +23,10 @@ from ..sampling import init_render_state
 from ..shade import REFLECTIONS_NOT_PORTED, ao_step_dist, ao_trunc_steps, scene_color
 from ..vecmath import fma
 from . import build
+from .tonemap import tonemap_pack_plain
 
 LAUNCHES = 0  # K2 launches (one per render_passes call; plain-version calls excluded)
+PACKS = 0  # K2 launches that also packed the image (K1's pack as their epilogue)
 
 # The loops the counting build counts, in the order of csrc/render_pass.cu's
 # CountedLoop: (warp iterations, active lanes) of each
@@ -32,8 +34,7 @@ COUNTED_LOOPS = ("primary_samples", "primary_steps", "ao_samples", "shadow_sampl
                  "shadow_steps")
 SAMPLE_LOOPS = ("primary_samples", "ao_samples", "shadow_samples")
 
-MAX_AO_PROBES = 16
-MAX_LIGHTS = 4
+MAX_LIGHTS = 4  # the kernel's light arrays; no preset of the JAX package has more
 
 _f, _i = ctypes.c_float, ctypes.c_int
 
@@ -47,7 +48,7 @@ class RmclParams(ctypes.Structure):
         ("maxIter", _i), ("maxVoxelIter", _i), ("shadowIter", _i), ("aoIter", _i),
         ("numLights", _i), ("isoVal", _i), ("tableLen", _i),
         ("edge", _i), ("brickShift", _i), ("nbx", _i), ("nby", _i), ("rowWords", _i),
-        ("aoSteps", _i), ("aoTrunc", _i * MAX_AO_PROBES), ("aoD", _f * MAX_AO_PROBES),
+        ("aoSteps", _i),
         ("marchScale", _f), ("aoScale", _f), ("shadowBaseStep", _f),
         ("invNumLights", _f), ("voxelSize", _f),
         ("bmin", _f * 3), ("bmax", _f * 3), ("vb", _f * 3), ("vb2", _f * 3),
@@ -58,23 +59,24 @@ class RmclParams(ctypes.Structure):
         ("startDist", _f), ("eps", _f), ("aoAmp", _f), ("groundY", _f),
         ("shadowBias", _f), ("lightScatter", _f), ("minLightAtt", _f),
         ("exposure", _f), ("dof", _f), ("frameBlend", _f), ("fogPow", _f),
-        ("flareAmp", _f),
+        ("flareAmp", _f), ("gamma", _f),
         ("lightPos", (_f * 4) * 4), ("lightColor", (_f * 4) * 4),
         ("matAlbedo", (_f * 4) * 4), ("matR0", _f * 4), ("matSmooth", _f * 4),
     ]
 
 
 def make_params(opts, accel: Accel | None = None) -> RmclParams:
-    """The kernel's parameter block, one per frame (each pass's time goes
-    beside it, `pass_times`); derived constants in float32 exactly as the
-    plain version computes them. The brick fields stay 0 without a brick
-    table."""
+    """The kernel's parameter block, one per frame (the pass times and AO
+    probes go beside it, `launch_block`); derived constants in float32
+    exactly as the plain version computes them. The brick fields stay 0
+    without a brick table."""
     if opts.reflectIter > 0:
         raise NotImplementedError(REFLECTIONS_NOT_PORTED)
     if not 1 <= opts.numLights <= MAX_LIGHTS:
-        raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}], got {opts.numLights}")
-    if not 0 <= opts.aoIter < MAX_AO_PROBES:
-        raise ValueError(f"aoIter must be in [0, {MAX_AO_PROBES}), got {opts.aoIter}")
+        raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}] (the kernel's light arrays; "
+                         f"the JAX presets use 1 or 2), got {opts.numLights}")
+    if opts.aoIter < 0:
+        raise ValueError(f"aoIter must be >= 0, got {opts.aoIter}")
     f32 = np.float32
     p = RmclParams()
     p.width, p.height = opts.resolution
@@ -87,9 +89,6 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
         p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
         p.rowWords = row_words(accel.edge)
     p.aoSteps = opts.maxVoxelIter // 2
-    for i in range(opts.aoIter + 1):
-        p.aoTrunc[i] = ao_trunc_steps(opts, p.aoSteps, i)
-        p.aoD[i] = float(ao_step_dist(opts, i))
     p.marchScale = float(f32(1.0 / (opts.maxVoxelIter * 0.5)))
     p.aoScale = float(f32(1.0 / (p.aoSteps * 0.5)))
     f_min = min(a * b for a, b in zip(opts.invVoxelScale, opts.voxelBounds2))
@@ -104,7 +103,7 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
         getattr(p, dst)[:] = [float(v) for v in np.asarray(src, np.float32)]
     for k in ("invAspect", "fov", "maxDist", "startDist", "eps", "aoAmp",
               "groundY", "shadowBias", "lightScatter", "minLightAtt", "exposure",
-              "dof", "frameBlend", "fogPow", "flareAmp"):
+              "dof", "frameBlend", "fogPow", "flareAmp", "gamma"):
         setattr(p, k, float(getattr(opts, k)))
     for dst, src in (("lightPos", opts.lightPos), ("lightColor", opts.lightColor),
                      ("matAlbedo", opts.mat_albedo)):
@@ -124,6 +123,19 @@ def pass_times(times) -> torch.Tensor:
     return torch.tensor([np.float32(t) for t in times], dtype=torch.float32)
 
 
+def launch_block(opts, times: torch.Tensor) -> torch.Tensor:
+    """What goes to the card beside the parameter block, in one copy: each
+    pass's time (`pass_times`), then per AO probe i <= aoIter its distance
+    shade.ao_step_dist (float32), then its sample cap shade.ao_trunc_steps
+    (int32). An int32 CPU tensor holding the bits."""
+    steps = opts.maxVoxelIter // 2
+    probes = range(opts.aoIter + 1)
+    dist = np.array([ao_step_dist(opts, i) for i in probes], np.float32)
+    cap = np.array([ao_trunc_steps(opts, steps, i) for i in probes], np.int32)
+    return torch.from_numpy(np.concatenate([times.numpy().view(np.int32), dist.view(np.int32),
+                                            cap]))
+
+
 def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
     """Plain version of one pass: the pass's blended accum (a new tensor)."""
     ids = torch.arange(opts.num_pixels, device=accum.device)
@@ -134,7 +146,7 @@ def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> to
     return fma(col_a - accum, opts.frameBlend, accum)
 
 
-def _check(vol, opts, tables, times, accum, accel):
+def _check(vol, opts, tables, times, accum, accel, argb=None):
     rx, ry, rz, _ = opts.voxelRes
     if vol.dtype != torch.uint8 or vol.shape != (rx * ry * rz,):
         raise ValueError(f"vol must be flat uint8 of {rx * ry * rz} voxels, got "
@@ -161,51 +173,65 @@ def _check(vol, opts, tables, times, accum, accel):
                              f"{nbx * nby * nbz} of edge {accel.edge}")
         if not rows.is_contiguous() or rows.device != vol.device:
             raise ValueError(f"accel rows must be contiguous on {vol.device}")
+    if argb is not None and (argb.dtype != torch.int32 or argb.shape != (opts.num_pixels,)
+                             or not argb.is_contiguous() or argb.device != accum.device):
+        raise ValueError(f"argb must be contiguous ({opts.num_pixels},) int32 on "
+                         f"{accum.device}, got {tuple(argb.shape)} {argb.dtype} on {argb.device}")
 
 
-def _launch(vol, opts, tables, times, accum, accel, counts) -> None:
-    """One launch of K2 over all passes; `counts` selects the counting build."""
+def _launch(vol, opts, tables, times, accum, accel, counts, argb=None) -> None:
+    """One launch of K2 over all passes; `counts` selects the counting build,
+    `argb` the pack of the final accum."""
     if accum.device.type != "cuda":
         raise ValueError(f"unsupported device {accum.device}")
     if tables.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
-    global LAUNCHES
+    global LAUNCHES, PACKS
     params = make_params(opts, accel)
     # pinned and non-blocking: a pageable copy would wait for the stream
-    times_d = times.pin_memory().to(accum.device, non_blocking=True)
+    block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
     next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
     rows = None if accel is None else accel.rows.data_ptr()
     lib = build.library()
     with torch.cuda.device(accum.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.rmcl_render_passes(ctypes.byref(params), vol.data_ptr(), tables.data_ptr(),
-                                    times_d.data_ptr(), tables.shape[0], rows,
-                                    accum.data_ptr(), next_tile.data_ptr(),
+                                    block_d.data_ptr(), tables.shape[0], rows,
+                                    accum.data_ptr(), None if argb is None else argb.data_ptr(),
+                                    next_tile.data_ptr(),
                                     None if counts is None else counts.data_ptr(), stream)
     build.check(rc, "rmcl_render_passes")
     LAUNCHES += 1
+    if argb is not None:
+        PACKS += 1
 
 
-def render_passes(vol, opts, tables, times, accum, accel: Accel | None = None) -> torch.Tensor:
+def render_passes(vol, opts, tables, times, accum, accel: Accel | None = None,
+                  argb: torch.Tensor | None = None) -> torch.Tensor:
     """Passes [0, P) of `tables` (P, T, 4) at `times` (P,), blended into
     `accum` in place in order; returns accum. `accel` is the volume's brick
-    table or None. CPU tensors take the plain version, pass by pass; CUDA
-    tensors launch the kernel once (or raise)."""
+    table or None. `argb`, an (N,) int32 tensor or None, is filled with the
+    final accum tonemapped and packed (K1's function). CPU tensors take the
+    plain versions, pass by pass, then the pack; CUDA tensors launch the
+    kernel once, which packs in its epilogue (or raise)."""
     times = pass_times(times)
-    _check(vol, opts, tables, times, accum, accel)
+    _check(vol, opts, tables, times, accum, accel, argb)
     if accum.device.type == "cpu":
         for p in range(tables.shape[0]):
             accum.copy_(render_pass_plain(vol, opts.replace(time=times[p]), tables[p], accum,
                                           accel))
+        if argb is not None:
+            argb.copy_(tonemap_pack_plain(accum, opts.gamma))
         return accum
-    _launch(vol, opts, tables, times, accum, accel, None)
+    _launch(vol, opts, tables, times, accum, accel, None, argb)
     return accum
 
 
-def render_pass(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
+def render_pass(vol, opts, table, accum, accel: Accel | None = None,
+                argb: torch.Tensor | None = None) -> torch.Tensor:
     """One pass (`table` (T, 4) at opts.time) blended into `accum` in place;
     returns accum. The one-pass call of `render_passes`."""
-    return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel)
+    return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel, argb)
 
 
 def count_lanes(vol, opts, tables, times, accum, accel: Accel) -> dict:

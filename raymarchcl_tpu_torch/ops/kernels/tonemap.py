@@ -3,6 +3,9 @@
 Replaces the TPU kernel `raymarchcl_tpu/ops/kernels/tonemap_pallas.py`
 (`tonemap_pack_pallas`) and the jnp pack of `ops/render.py:pack_argb`.
 CUDA source: csrc/tonemap.cu (what bounds it on the H100 is noted there).
+On the main path the same pack is the epilogue of K2's frame launch
+(`render_pass.render_passes(..., argb=...)`, counted in `render_pass.PACKS`);
+this kernel packs an accum on its own (`render.pack_argb`).
 
 Packed pixels are returned as an int32 tensor holding the uint32 bits
 0xAARRGGBB (torch has few uint32 ops); `.numpy().view(np.uint32)` reads them.

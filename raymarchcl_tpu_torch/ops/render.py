@@ -3,9 +3,10 @@
 Counterpart of the plain path of `raymarchcl_tpu/ops/render.py`: the
 reference's progressive blend (renderer.cl:478-494, `pixels = mix(pixels,
 col*exposure, frameBlend)` over `iter` sequential passes, core.clj:82-90)
-and TonemapImage (renderer.cl:496-508). All passes of a frame are one K2
-launch on a CUDA device (ops/kernels/render_pass.py), the pack one K1
-launch (ops/kernels/tonemap.py); on the CPU both run their plain versions.
+and TonemapImage (renderer.cl:496-508). All passes of a frame and the pack
+are one K2 launch on a CUDA device (ops/kernels/render_pass.py: K1's pack
+is the epilogue of the last pass); `pack_argb` packs an accum on its own
+(K1, ops/kernels/tonemap.py). On the CPU both run their plain versions.
 
 The accumulation is the reference's exponentially-weighted blend with
 frameBlend = 1/iter from a zeroed buffer, not an arithmetic mean.
@@ -52,7 +53,7 @@ def render_image(vol, opts, mc_tables, times=None, accum=None, accel=None):
         times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
     if accum is None:
         accum = torch.zeros((opts.num_pixels, 3), dtype=torch.float32, device=vol.device)
-    accum = render_accum(vol, opts, mc_tables, times, accum, accel)
-    argb = pack_argb(opts, accum)
+    argb = torch.empty(opts.num_pixels, dtype=torch.int32, device=accum.device)
+    render_passes(vol, opts, mc_tables, times, accum, accel, argb)
     w, h = opts.resolution
     return argb.cpu().numpy().view(np.uint32).reshape(h, w), accum

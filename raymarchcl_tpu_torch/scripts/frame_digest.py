@@ -7,9 +7,10 @@ Renders the main path of chip_smoke.py (gyroid 256^3, 512x512, 16 spp,
 `ao`, orbit camera at theta=135, over the brick table) `--frames` times
 through ops.render.render_image with the raymarchcl_tpu_torch package of
 the checkout at --root (default: the one holding this file), and prints
-one JSON line: the sha256 of the last frame's accum bytes, the frames'
-host-clock seconds (each ending in a synchronize), the K1/K2 launches and
-the device. It calls only entry points that every version of the port
+one JSON line: the sha256 of the last frame's accum bytes and of its
+image (the (H, W) uint32 ARGB words), the frames' host-clock seconds (each
+ending in a synchronize), the K1/K2 launches, the images K2 packed (null
+for a version whose K2 does not pack) and the device. It calls only entry points that every version of the port
 with a brick table has, so one file serves an older checkout too. Needs a
 CUDA device.
 """
@@ -59,15 +60,19 @@ def main(argv=None):
     render_mod.render_image(vol, opts, tables, accel=bricks)  # builds, warms up
     torch.cuda.synchronize()
     k1.LAUNCHES = k2.LAUNCHES = 0
-    frames, accum = [], None
+    if hasattr(k2, "PACKS"):
+        k2.PACKS = 0
+    frames, argb, accum = [], None, None
     for _ in range(args.frames):
         t0 = time.perf_counter()
-        _, accum = render_mod.render_image(vol, opts, tables, accel=bricks)
+        argb, accum = render_mod.render_image(vol, opts, tables, accel=bricks)
         torch.cuda.synchronize()
         frames.append(time.perf_counter() - t0)
     digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
     print(json.dumps({"root": os.path.abspath(args.root), "accum_sha256": digest,
+                      "argb_sha256": hashlib.sha256(argb.tobytes()).hexdigest(),
                       "frames_s": frames, "launches": {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES},
+                      "packs": getattr(k2, "PACKS", None),
                       "device": torch.cuda.get_device_name(0)}), flush=True)
 
 

@@ -243,3 +243,94 @@ def test_e5_cuda_shapes_equal_plain(cuda_device, shape):
         want, want_n = prims.e5_while_plain(x)
         assert int(want_n[0]) == trips
         assert torch.equal(n, want_n) and torch.equal(out, want), trips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 128])
+def test_e3_cuda_ragged_equal_plain(cuda_device, width):
+    """E3's lanes-a-ray schedule at the CPU model's shapes: row widths 1, 3
+    and 128, u 1, 8 and 33 (bits repeat), reps 1, 7 (no round at u 8 and 33),
+    64 and 1024, one ray and a partial block, word offsets random, negative
+    and near INT32_MAX (where w + j + i wraps): exactly the plain version,
+    one launch each."""
+    rng = np.random.default_rng(width)
+    for k in (1, 37, 1024):
+        rows = torch.from_numpy(rng.integers(-2**31, 2**31, (k, width)).astype(np.int32))
+        b = torch.from_numpy(rng.integers(-2**31, 2**31, (k, 1)).astype(np.int32))
+        starts = {"random": rng.integers(-2**31, 2**31, (k, 1)),
+                  "negative": rng.integers(-2**31, 0, (k, 1)),
+                  "near_max": 2**31 - 1 - rng.integers(0, 1100, (k, 1))}
+        for kind, w in starts.items():
+            w = torch.from_numpy(w.astype(np.int32))
+            args = [a.to(cuda_device) for a in (rows, w, b)]
+            for u in (1, 8, 33):
+                for reps in (1, 7, 64, 1024):
+                    before = prims.LAUNCHES["E3"]
+                    got = prims.e3_probe(*args, u=u, reps=reps)
+                    torch.cuda.synchronize()
+                    assert prims.LAUNCHES["E3"] == before + 1
+                    assert torch.equal(got, prims.e3_probe_plain(*args, u, reps)), \
+                        (k, kind, u, reps)
+
+
+@pytest.mark.cuda
+def test_e3_cuda_degenerate_shapes_refused(cuda_device):
+    """E3 refuses on the card what it refuses on the CPU, and launches
+    nothing for it; reps < u gives zeros."""
+    x = bench_prims.inputs(cuda_device)
+    rows, w, b = x["e3_rows"], x["e3_w"], x["e3_b"]
+    before = prims.LAUNCHES["E3"]
+    for args, kw in (((rows[:, :0], w, b), {}), ((rows, w, b), {"u": 0}),
+                     ((rows, w, b), {"reps": 0}), ((rows, w[:-1], b), {}),
+                     ((rows, w, b.reshape(1, -1)), {})):
+        with pytest.raises(ValueError, match="E3"):
+            prims.e3_probe(*args, **kw)
+    assert prims.LAUNCHES["E3"] == before
+    got = prims.e3_probe(rows, w, b, u=8, reps=7)
+    torch.cuda.synchronize()
+    assert got.shape == (rows.shape[0], 1) and not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_table", [False, True])
+@pytest.mark.parametrize("size", [(64, 48), (100, 37)])
+def test_k2_cuda_fused_pack_bit_equal(cuda_device, size, with_table):
+    """K1's pack as K2's epilogue: the argb of a two-pass frame, of one pass
+    onto an accum passed back in, and of no pass (the accum as given) is
+    bit-equal to K1's plain version of the final accum, ragged tiles
+    included; the accum is the one K2 renders without the pack."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, *size, 2)
+    bricks = bricks if with_table else None
+    n = opts.num_pixels
+    want_acc = k2.render_passes(vol, opts, tables, times,
+                                torch.zeros((n, 3), device=cuda_device), bricks)
+    acc = torch.zeros((n, 3), device=cuda_device)
+    argb = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    before = (k2.LAUNCHES, k2.PACKS, k1.LAUNCHES)
+    k2.render_passes(vol, opts, tables, times, acc, bricks, argb)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES, k2.PACKS, k1.LAUNCHES) == (before[0] + 1, before[1] + 1, before[2])
+    assert torch.equal(acc, want_acc)
+    assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))
+    k2.render_pass(vol, opts.replace(time=0.5), tables[0], acc, bricks, argb)
+    torch.cuda.synchronize()
+    assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))
+    acc.uniform_(-1.0, 40.0)
+    k2.render_passes(vol, opts, tables[:0], times[:0], acc, bricks, argb)
+    torch.cuda.synchronize()
+    assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ao_iter", [16, 20])
+def test_k2_cuda_any_ao_iter(cuda_device, ao_iter):
+    """K2 at aoIter 16 and 20 (the probe table beside the pass times, no
+    fixed cap): within the tolerance of its plain version."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 32, 24, 1)
+    opts = opts.replace(aoIter=ao_iter)
+    acc = torch.zeros((opts.num_pixels, 3), device=cuda_device)
+    want = k2.render_pass_plain(vol, opts.replace(time=times[0]), tables[0], acc.clone(), bricks)
+    k2.render_passes(vol, opts, tables, times, acc, bricks)
+    torch.cuda.synchronize()
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995

@@ -142,6 +142,9 @@ def test_params_struct_mirrors_c_header():
         py_fields.append((name, {ctypes.c_int: "int", ctypes.c_float: "float"}[base], n))
     assert py_fields == c_fields
     assert ctypes.sizeof(k2.RmclParams) == 4 * sum(n for _, _, n in c_fields)
+    names = [name for name, _, _ in c_fields]
+    assert ("gamma", "float", 1) in c_fields  # the fused pack's
+    assert "aoTrunc" not in names and "aoD" not in names  # the probe table goes beside
 
 
 def test_params_values(small_scene):
@@ -151,17 +154,38 @@ def test_params_values(small_scene):
     assert float(k2.pass_times([0.333])[0]) == float(np.float32(0.333))  # beside the block
     assert p.tableLen == opts.mcTableLength == 0x4000
     assert p.aoSteps == 32 and p.numLights == 1 and p.isoVal == 32
-    for i in range(opts.aoIter + 1):
-        assert p.aoTrunc[i] == shade.ao_trunc_steps(opts, 32, i)
-        assert p.aoD[i] == float(shade.ao_step_dist(opts, i))
     assert p.marchScale == float(np.float32(1 / 32)) and p.invNumLights == 1.0
+    assert p.gamma == float(np.float32(1.5)) == float(opts.gamma)
     assert list(p.lightColor[0]) == [50.0, 50.0, 50.0, 0.0]
     assert (p.edge, p.brickShift, p.nbx, p.nby, p.rowWords) == (0, 0, 0, 0, 0)
     bricks = accel.build_accel(np.zeros(32 * 32 * 96, np.uint8), opts.voxelRes, 32, edge=16)
     p = k2.make_params(opts, bricks)
     assert (p.edge, p.brickShift, p.nbx, p.nby, p.rowWords) == (16, 4, 2, 2, 130)
-    with pytest.raises(ValueError):
-        k2.make_params(opts.replace(aoIter=16))
+    k2.make_params(opts.replace(aoIter=16))  # any aoIter: the probe table goes beside
+    with pytest.raises(ValueError, match="numLights"):
+        k2.make_params(opts.replace(numLights=5))
+    with pytest.raises(ValueError, match="aoIter"):
+        k2.make_params(opts.replace(aoIter=-1))
+
+
+@pytest.mark.parametrize("ao_iter", [0, 5, 16, 20])
+def test_launch_block_ao_probes(small_scene, ao_iter):
+    """The block that goes beside the parameter block: the pass times as
+    float32, then per AO probe i <= aoIter shade.ao_step_dist and
+    shade.ao_trunc_steps, at aoIter below, at and above the old cap of 16
+    probes."""
+    opts, _, _ = small_scene
+    opts = opts.replace(aoIter=ao_iter)
+    times = k2.pass_times([0.0, 0.333, 0.666])
+    block = k2.launch_block(opts, times)
+    n = ao_iter + 1
+    assert block.dtype == torch.int32 and block.shape == (3 + 2 * n,)
+    assert torch.equal(block[:3].view(torch.float32), times)
+    dist, cap = block[3:3 + n].view(torch.float32), block[3 + n:]
+    for i in range(n):
+        assert dist[i].item() == float(shade.ao_step_dist(opts, i))
+        assert cap[i].item() == shade.ao_trunc_steps(opts, opts.maxVoxelIter // 2, i)
+    assert cap.max() <= opts.maxVoxelIter // 2 and k2.make_params(opts).aoIter == ao_iter
 
 
 def test_build_reports_nvcc_failure(tmp_path, monkeypatch):

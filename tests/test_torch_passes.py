@@ -23,6 +23,7 @@ from raymarchcl_tpu_torch.ops import accel
 from raymarchcl_tpu_torch.ops import render as t_render
 from raymarchcl_tpu_torch.ops.kernels import build
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
+from raymarchcl_tpu_torch.ops.kernels.tonemap import tonemap_pack_plain
 from raymarchcl_tpu_torch.options import render_options
 from raymarchcl_tpu_torch.scripts import profile_frame
 
@@ -165,6 +166,44 @@ def test_render_passes_checks(scene):
     with pytest.raises(ValueError, match="unsupported device"):
         k2.count_lanes(vol, opts, tables, torch.zeros(2), acc,
                        accel.build_accel(vol, opts.voxelRes, opts.isoVal))
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_render_passes_argb_checked(scene, bad):
+    """The argb a caller hands render_passes must be (N,) contiguous int32
+    on accum's device; it is refused before any pass runs."""
+    vol_np, tables_np = scene
+    vol, tables = volume_from_numpy(vol_np), tables_from_numpy(tables_np)
+    opts = render_options(**SMALL)
+    n = opts.num_pixels
+    argb = {"shape": torch.zeros((n, 1), dtype=torch.int32),
+            "dtype": torch.zeros(n, dtype=torch.int64),
+            "strided": torch.zeros(2 * n, dtype=torch.int32)[::2]}[bad]
+    acc = torch.zeros((n, 3))
+    with pytest.raises(ValueError, match="argb"):
+        k2.render_passes(vol, opts, tables, torch.zeros(2), acc, argb=argb)
+    assert not acc.any()
+
+
+def test_render_passes_argb_packs_final_accum(scene):
+    """On the CPU render_passes packs the final accum (K1's plain version)
+    into argb: after two passes, after one pass onto an accum passed back
+    in, and with no pass at all (the accum as given)."""
+    vol_np, tables_np = scene
+    vol, tables = volume_from_numpy(vol_np), tables_from_numpy(tables_np)
+    opts = render_options(**SMALL)
+    times = torch.arange(2, dtype=torch.float32) * t_render.TIME_STEP_INIT
+    acc = torch.zeros((opts.num_pixels, 3))
+    argb = torch.zeros(opts.num_pixels, dtype=torch.int32)
+    before = (k2.LAUNCHES, k2.PACKS)
+    k2.render_passes(vol, opts, tables, times, acc, argb=argb)
+    assert torch.equal(argb, tonemap_pack_plain(acc, opts.gamma))
+    k2.render_pass(vol, opts.replace(time=0.5), tables[0], acc, argb=argb)  # accum passed back
+    assert torch.equal(argb, tonemap_pack_plain(acc, opts.gamma))
+    acc.fill_(0.25)
+    k2.render_passes(vol, opts, tables[:0], times[:0], acc, argb=argb)
+    assert torch.equal(argb, tonemap_pack_plain(acc, opts.gamma))
+    assert len(torch.unique(argb)) == 1 and (k2.LAUNCHES, k2.PACKS) == before
 
 
 def test_profile_idle_by_place():

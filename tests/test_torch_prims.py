@@ -458,3 +458,106 @@ def test_e5_slot_layout(shape):
     want, trips = prims.e5_while_plain(_t(xs))
     assert i == int(trips[0])
     np.testing.assert_array_equal(out.reshape(R, C), want.numpy())
+
+
+@functools.cache
+def _e3_consts():
+    """(kE3Lanes, kE3Batch) as csrc/prims.cu declares them."""
+    m = re.search(r"constexpr int kE3Lanes = (\d+), kE3Batch = (\d+);", _prims_src())
+    return int(m.group(1)), int(m.group(2))
+
+
+def e3_lane_probes(w, b, u, rounds, width, part, lanes, batch):
+    """csrc/prims.cu e3_probe_kernel, lane `part` of the `lanes` sharing a ray,
+    for a vector of rays with word offsets w and bit offsets b (int64 arrays):
+    the (round j, column i, word index per ray, bit per ray) it probes, in
+    order. e3_cols, e3_share and e3_steps are evaluated as written there."""
+    env = {"kE3Lanes": lanes, "INT32_MAX": INT32_MAX, "min": min}
+    env["e3_cols"] = lambda u_: eval(_device_expr("e3_cols"), env, {"u": u_})
+    cols = env["e3_cols"](u)
+    share = eval(_device_expr("e3_share"), env, {"rounds": rounds, "u": u})
+    h, j0 = part // cols, part // cols * share
+    probes = []
+    if h >= lanes // cols or j0 >= rounds:
+        return probes
+    j1 = j0 + min(share, rounds - j0)
+    for i in range(part % cols, u, cols):
+        bit = prims._wrap(b + i) & 31
+        v0 = prims._wrap(w + j0 + i)
+        steps = eval(_device_expr("e3_steps"), env, {"v0": v0, "n": j1 - j0})
+        r = v0 % width  # the column's one floor modulo
+        for j in range(j0, j1, batch):
+            for q in range(batch):
+                if j + q < j1:
+                    r = np.where(steps, r, prims._wrap(w + j + q + i) % width)
+                    probes.append((j + q, i, r, bit))
+                    r = np.where(r + 1 == width, 0, r + 1)
+    return probes
+
+
+def _e3_starts(rng):
+    """Word offsets near INT32_MAX (every overflow boundary of the shares
+    below), negative ones down to INT32_MIN, and small ones."""
+    return np.concatenate([INT32_MAX - np.arange(1100), [-2**31, -2**31 + 1, -129, -3, -1],
+                           rng.integers(-2**31, 0, 8), [0, 1, 2, 127, 128],
+                           rng.integers(0, 2**31, 8)]).astype(np.int64)
+
+
+@functools.cache
+def _e3_case(reps, u, width):
+    """Rays at _e3_starts with random bit offsets and rows: (w, b, the rows'
+    words as uint32 values, the plain E3's hits), shared by every lane count."""
+    rng = np.random.default_rng(reps * u * width)
+    w = _e3_starts(rng)
+    b = rng.integers(-2**31, 2**31, w.size)
+    rows = rng.integers(-2**31, 2**31, (w.size, width)).astype(np.int32)
+    want = prims.e3_probe_plain(_t(rows), _t(w[:, None]), _t(b[:, None]), u, reps)
+    return w, b, rows.view(np.uint32).astype(np.int64), want.numpy()[:, 0]
+
+
+@pytest.mark.parametrize("width", [1, 3, 128])
+@pytest.mark.parametrize("u", [1, 8, 33])
+@pytest.mark.parametrize("reps", [1, 7, 64, 1024])
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_e3_lane_schedule(lanes, reps, u, width):
+    """E3's schedule, as the kernel runs it for `lanes` lanes a ray: every
+    (round, column) probe is taken by exactly one lane of the group, from
+    word (w + j + i) mod W of int32-wrapped w + j + i (the +1 steps with their
+    wrap, and the per-probe formula past the int32 overflow) and bit
+    (b + i) mod 32, and the group's sum equals the plain E3 (u = 33 repeats
+    bits; reps < u is no round)."""
+    batch = _e3_consts()[1]
+    w, b, words, want = _e3_case(reps, u, width)
+    rounds = reps // u
+    seen, bad, hits = [], 0, np.zeros(w.size, np.int64)
+    for part in range(lanes):
+        for j, i, r, bit in e3_lane_probes(w, b, u, rounds, width, part, lanes, batch):
+            seen.append((j, i))
+            bad += int(np.count_nonzero(r != prims._wrap(w + j + i) % width))
+            hits += (np.take_along_axis(words, r[:, None], 1)[:, 0] >> bit) & 1
+    assert sorted(seen) == [(j, i) for j in range(rounds) for i in range(u)]
+    assert bad == 0, f"{bad} probes read the wrong word"
+    np.testing.assert_array_equal(hits, want)
+
+
+def test_e3_groups_within_a_warp():
+    """The kernel's lanes a ray: a power of two that divides a warp, so that
+    a group's shuffles stay in its warp."""
+    lanes, batch = _e3_consts()
+    assert 1 <= lanes <= 32 and lanes & (lanes - 1) == 0 and batch >= 1
+
+
+@pytest.mark.parametrize("bad", ["W0", "u0", "reps0", "w_shape", "b_shape", "rows_1d"])
+def test_e3_degenerate_shapes_refused(x, bad):
+    """E3 refuses an empty row width, u < 1, reps < 1 and offsets that are
+    not (K, 1) or (K,), before its plain version runs; reps < u is zero
+    rounds, all hits 0."""
+    rows, w, b = x["e3_rows"][:8], x["e3_w"][:8], x["e3_b"][:8]
+    args, kw = {"W0": ((rows[:, :0], w, b), {}), "u0": ((rows, w, b), {"u": 0}),
+                "reps0": ((rows, w, b), {"reps": 0}), "w_shape": ((rows, w[:7], b), {}),
+                "b_shape": ((rows, w, b.reshape(1, 8)), {}),
+                "rows_1d": ((rows.reshape(-1), w, b), {})}[bad]
+    with pytest.raises(ValueError, match="E3"):
+        prims.e3_probe(*args, **kw)
+    got = prims.e3_probe(rows, w.reshape(-1), b, u=8, reps=7)
+    assert got.shape == (8, 1) and not got.any()

@@ -24,6 +24,7 @@ from raymarchcl_tpu_torch.io import imageio
 from raymarchcl_tpu_torch.ops import render as t_render
 from raymarchcl_tpu_torch.ops import sampling as t_sampling
 from raymarchcl_tpu_torch.ops.camera import camera_ray_lookat
+from raymarchcl_tpu_torch.ops.kernels.tonemap import tonemap_pack_plain
 from raymarchcl_tpu_torch.ops.shade import scene_color
 from raymarchcl_tpu_torch.options import render_options
 
@@ -153,6 +154,22 @@ def test_entry_points_default_to_cuda(vol, monkeypatch):
                                     accel=False, maxIter=16, maxVoxelIter=32, shadowIter=16)
     assert acc.device.type == "cpu" and torch.equal(acc, acc_raw)
     np.testing.assert_array_equal(argb, raw)
+
+
+def test_render_image_argb_is_pack_of_accum(vol):
+    """render_image's image is K1's plain pack of the frame's final accum,
+    also when an accum is passed back in to refine it (core.clj:194-208)."""
+    opts = render_options(width=8, height=6, vres=VRES, iter=2, mat="ao",
+                          maxIter=32, maxVoxelIter=64, shadowIter=32)
+    tables = t_sampling.make_mc_tables(2, seed=5)
+    v = volume_from_numpy(vol)
+    argb, acc = t_render.render_image(v, opts, tables)
+    want = tonemap_pack_plain(acc, opts.gamma).numpy().view(np.uint32).reshape(6, 8)
+    np.testing.assert_array_equal(argb, want)
+    argb2, acc2 = t_render.render_image(v, opts, tables, accum=acc.clone())
+    assert not torch.equal(acc2, acc)
+    np.testing.assert_array_equal(
+        argb2, tonemap_pack_plain(acc2, opts.gamma).numpy().view(np.uint32).reshape(6, 8))
 
 
 def test_accumulation_is_sequential_blend(vol):
