@@ -3,23 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc, checks
-each against its plain PyTorch version on the card (K2 also at aoIter 16),
-checks the `gyroid-ao` golden image and the brick table of the 256^3
-gyroid, shows that K2 over the brick table is bit-equal to K2 without it,
-that one K2 launch of a frame's 16 passes is bit-equal to 16 one-pass
-launches and that the image K2 packs in its epilogue (K1's function) is
-bit-equal to K1's plain version of its accum, then drives the two paths:
-the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
+Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc (and
+reports each K2 instance's registers and spills), checks each against its
+plain PyTorch version on the card (K2 also at aoIter 16, and its
+reflective instance K2c for `metal`, `metal2` and `orange-stripes` at
+64x48 and for `metal` on the first pass of the reflective path's 512x512
+frame), checks the `gyroid-ao`, `gyroid-metal`, `gyroid-orange` and `gyroid-dof`
+golden images and the brick table of the 256^3 gyroid, shows that K2 and
+K2c over the brick table are bit-equal to themselves without it, that one
+launch of a frame's 16 passes is bit-equal to 16 one-pass launches and
+that the image K2 packs in its epilogue (K1's function) is bit-equal to
+K1's plain version of its accum, then drives the three paths: the main
+path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
 theta=135, brick table on; one K2 launch a frame, which packs the image)
 through ops.render.render_image, timed with and without the brick table,
-K2 timed with and without the pack, and the primitive probes E1-E5 through
-raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's rounds,
-E3's probes, E4's reps and E5's trips cost time, their library yardsticks
-and the launch floor. K2's counting build gives the march samples of its
-bound and its loops' active-lane shares. One line per phase; the
-second-to-last line is a JSON object with one entry per kernel, the last
-line the JSON result.
+K2 timed with and without the pack; the reflective path (the same frame
+with the `metal` preset, the reference's default still) through
+api.test_render, its frames and K2c timed; and the primitive probes E1-E5
+through raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's
+rounds, E3's probes, E4's reps and E5's trips cost time, their library
+yardsticks and the launch floor. K2's counting build gives the march
+samples of K2's and K2c's bounds and their loops' active-lane shares. One
+line per phase; the second-to-last line is a JSON object with one entry
+per kernel, the last line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -35,7 +41,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(REPO, "tests", "goldens", "gyroid-ao.png")
+GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 TOL = dict(rtol=5e-3, atol=5e-3)  # per-pixel accum tolerance (tests/test_parity.py:51)
 MIN_PIXELS_OK = 0.995
 # Published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s, and the
@@ -47,6 +53,15 @@ F32_OPS_S = 67e12
 OPS_PER_SAMPLE = 9
 GOLDEN_CASE = dict(width=64, height=48, iter=2, vres=48, mat="ao", theta=135, dist=2.25,
                    seed=7, maxIter=32, maxVoxelIter=64, shadowIter=32)
+# the goldens of tests/test_goldens.py that the gyroid renders
+GOLDENS = {
+    "gyroid-ao": GOLDEN_CASE,
+    "gyroid-metal": dict(GOLDEN_CASE, width=48, height=32, iter=1, mat="metal"),
+    "gyroid-orange": dict(GOLDEN_CASE, width=48, height=32, iter=1, mat="orange-stripes",
+                          theta=60),
+    "gyroid-dof": dict(GOLDEN_CASE, width=48, height=32, mat="metal2", dof=0.05),
+}
+REFLECTIVE = ("metal", "metal2", "orange-stripes")
 
 
 def log(msg):
@@ -138,6 +153,31 @@ def check_accel(acc, vol_np, res, iso):
     return {int(a): int(b) for a, b in zip(vals, counts)}
 
 
+def k2_instances(build_log):
+    """Per K2 instance (raw/table, counting, reflective) its ptxas registers,
+    stack frame and spill bytes, read from the nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*render_passes_kernelI5BuildILb(\d)ELb(\d)"
+                      r"ELb(\d)", line)
+        if m:
+            b, c, r = (x == "1" for x in m.groups())
+            name = ("K2c" if r else "K2") + (" table" if b else " raw") + (" counting" if c else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and "stack" not in out[name]:
+            out[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m[1])
+            name = None
+    return out
+
+
 def timed_frames(render_mod, vol, opts, tables, acc, n=3):
     """n frames of render_image on the host clock, each ending in a
     synchronize. Returns (seconds per frame, last argb, last accum)."""
@@ -184,11 +224,19 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_info['seconds']:.2f} s) "
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_info['seconds']:.2f} s"
+        f"{', cached: its nvcc log read back' if build.build_info['cached'] else ''}) "
         f"-> {os.path.relpath(build.build_info['path'], REPO)}")
     for line in build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    k2_regs = k2_instances(build.build_info["log"])
+    log("K2 instances (ptxas): " + "; ".join(
+        f"{n} {v.get('registers')} registers, {v.get('stack')} B stack, "
+        f"{v.get('spill_stores')}/{v.get('spill_loads')} B spilled" for n, v in k2_regs.items()))
+    require(len(k2_regs) == 6 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
+                                      for v in k2_regs.values()),
+            f"K2's six instances should build without spills: {k2_regs}")
 
     # -- 2. K1 vs plain ------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -216,37 +264,49 @@ def main():
         times = torch.arange(kw["iter"], dtype=torch.float32) * render_mod.TIME_STEP_INIT
         acc_k = torch.zeros((opts.num_pixels, 3), device=dev)
         acc_p = torch.zeros((opts.num_pixels, 3), device=dev)
+        plain_s = 0.0
         for p in range(kw["iter"]):
             o = opts.replace(time=times[p])
             k2.render_pass(vol, o, tables[p], acc_k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             acc_p = k2.render_pass_plain(vol, o, tables[p], acc_p)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
         frac, exact, err = accum_agreement(acc_k, acc_p)
-        log(f"K2 vs plain [{name}]: {frac:.6f} of {opts.num_pixels} px within "
+        kname = "K2c" if opts.reflectIter > 0 else "K2"
+        log(f"{kname} vs plain [{name}]: {frac:.6f} of {opts.num_pixels} px within "
             f"rtol=atol=5e-3 ({1 - frac:.6f} differ), {exact:.6f} bit-equal, "
-            f"max abs diff {err:.6g}")
-        require(bool(torch.isfinite(acc_k).all()), f"K2 [{name}] accum not finite")
-        require(frac >= MIN_PIXELS_OK, f"K2 [{name}] agrees on {frac:.4%} < 99.5% of pixels")
-        return err
+            f"max abs diff {err:.6g}; plain {plain_s * 1e3:.1f} ms")
+        require(bool(torch.isfinite(acc_k).all()), f"{kname} [{name}] accum not finite")
+        require(frac >= MIN_PIXELS_OK, f"{kname} [{name}] agrees on {frac:.4%} < 99.5% of pixels")
+        return err, plain_s * 1e3
 
     g = {k: v for k, v in GOLDEN_CASE.items() if k not in ("theta", "dist", "seed")}
-    k2_err = k2_case("gyroid-ao golden case 64x48 2spp vres48", g.pop("vres"), 7, **g)
+    k2_err = k2_case("gyroid-ao golden case 64x48 2spp vres48", g.pop("vres"), 7, **g)[0]
     k2_err = max(k2_err, k2_case("128x128 2spp vres64 default budgets", 64, 0,
-                     width=128, height=128, iter=2, mat="ao"))
+                     width=128, height=128, iter=2, mat="ao")[0])
     k2_err = max(k2_err, k2_case("64x48 1spp vres48 aoIter 16", 48, 3, width=64, height=48,
-                                 iter=1, mat="ao", aoIter=16))
+                                 iter=1, mat="ao", aoIter=16)[0])
+    # -- 3b. K2c, the reflective instance, vs plain on the card --------------
+    k2c_small = dict(width=64, height=48, iter=2)
+    k2c_cases = {mat: k2_case(f"{mat} 64x48 2spp vres64 default budgets", 64, 0, mat=mat,
+                              **k2c_small) for mat in REFLECTIVE}
+    k2c_err = max(err for err, _ in k2c_cases.values())
 
-    # -- 4. the golden image on the card --------------------------------------
+    # -- 4. the golden images on the card -------------------------------------
     from PIL import Image
 
-    argb = api.test_render(out_path=None, verbose=False, device="cuda", **GOLDEN_CASE)
-    got = imageio.argb_to_rgba(argb).astype(np.int32)
-    want = np.asarray(Image.open(GOLDEN).convert("RGBA")).astype(np.int32)
-    require(got.shape == want.shape, f"golden shape {got.shape} != {want.shape}")
-    diff = np.abs(got[..., :3] - want[..., :3])
-    mad, off8 = float(diff.mean()), float((diff > 8).mean())
-    log(f"golden gyroid-ao on cuda: mad {mad:.6f} (< 0.15), frac_off8 {off8:.6%} (< 0.5%)")
-    require(mad < 0.15 and off8 < 0.005, "gyroid-ao golden thresholds missed")
+    for gname, case in GOLDENS.items():
+        argb = api.test_render(out_path=None, verbose=False, device="cuda", **case)
+        got = imageio.argb_to_rgba(argb).astype(np.int32)
+        want = np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{gname}.png")).convert("RGBA"))
+        want = want.astype(np.int32)
+        require(got.shape == want.shape, f"golden {gname} shape {got.shape} != {want.shape}")
+        diff = np.abs(got[..., :3] - want[..., :3])
+        mad, off8 = float(diff.mean()), float((diff > 8).mean())
+        log(f"golden {gname} on cuda: mad {mad:.6f} (< 0.15), frac_off8 {off8:.6%} (< 0.5%)")
+        require(mad < 0.15 and off8 < 0.005, f"{gname} golden thresholds missed")
 
     # -- 5. the brick table of the main path's volume -----------------------
     t0 = time.perf_counter()
@@ -321,6 +381,54 @@ def main():
             "K2's packed image at 100x37 differs from K1's plain pack of its accum")
     log(f"K2's fused pack at 100x37, 2 passes: bit-equal to K1's plain pack of the accum "
         f"({o.num_pixels} px)")
+    # -- 6c. K2c: with vs without the table, one launch vs one-pass launches,
+    # its fused pack
+    metal_kw = dict(main_kw, mat="metal")
+    opts_m = render_options(width=512, height=512, iter=16, **metal_kw)
+    a_raw, a_acc = zero.clone(), zero.clone()
+    for p in range(2):
+        op = opts_m.replace(time=times[p])
+        k2.render_pass(vol, op, tables[p], a_raw)
+        k2.render_pass(vol, op, tables[p], a_acc, bricks)
+    torch.cuda.synchronize()
+    require(torch.equal(a_acc, a_raw), "K2c with the brick table differs at 512^2")
+    log(f"K2c (metal) with vs without the brick table at 512^2, 2 passes: bit-equal "
+        f"({opts_m.num_pixels} px)")
+    # K2c vs its plain version on the main path's own inputs: the first
+    # pass at 512^2 over the 256^3 volume and its table (the 16-pass check
+    # below ties the other passes to one-pass launches)
+    om0 = opts_m.replace(time=times[0])
+    acc_kc = k2.render_pass(vol, om0, tables[0], zero.clone(), bricks)
+    march.SAMPLES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc_pc = k2.render_pass_plain(vol, om0, tables[0], zero.clone(), bricks)
+    torch.cuda.synchronize()
+    k2c_plain512_ms, k2c_plain512_samples = (time.perf_counter() - t0) * 1e3, march.SAMPLES
+    k2c_512 = accum_agreement(acc_kc, acc_pc)
+    log(f"K2c vs plain [metal 512^2 1 pass vres256 brick table, the main path's inputs]: "
+        f"{k2c_512[0]:.6f} of {opts_m.num_pixels} px within rtol=atol=5e-3 "
+        f"({1 - k2c_512[0]:.6f} differ), {k2c_512[1]:.6f} bit-equal, max abs diff "
+        f"{k2c_512[2]:.6g}; plain {k2c_plain512_ms:.1f} ms, {k2c_plain512_samples} march "
+        "samples read")
+    require(bool(torch.isfinite(acc_kc).all()), "K2c accum at 512^2 not finite")
+    require(k2c_512[0] >= MIN_PIXELS_OK, f"K2c at 512^2 agrees on {k2c_512[0]:.4%} < 99.5%")
+    k2c_err = max(k2c_err, k2c_512[2])
+    a_frame_m = k2.render_passes(vol, opts_m, tables, times, zero.clone(), bricks)
+    a_single = zero.clone()
+    for p in range(16):
+        k2.render_pass(vol, opts_m.replace(time=times[p]), tables[p], a_single, bricks)
+    torch.cuda.synchronize()
+    require(torch.equal(a_frame_m, a_single),
+            "K2c's 16-pass launch differs from 16 one-pass launches")
+    log("K2c (metal) one launch of 16 passes vs 16 one-pass launches at 512^2: bit-equal")
+    o = render_options(width=100, height=37, iter=2, **metal_kw)
+    a_r, argb_r = torch.zeros((o.num_pixels, 3), device=dev), torch.zeros(
+        o.num_pixels, dtype=torch.int32, device=dev)
+    k2.render_passes(vol, o, tables[:2], times[:2], a_r, bricks, argb_r)
+    require(torch.equal(argb_r, k1.tonemap_pack_plain(a_r, o.gamma)),
+            "K2c's packed image at 100x37 differs from K1's plain pack of its accum")
+    log("K2c's fused pack at 100x37, 2 passes: bit-equal to K1's plain pack of the accum")
     march.SAMPLES = 0
     t0 = time.perf_counter()
     a_plain = zero.clone()
@@ -342,16 +450,17 @@ def main():
     # -- 7. the main path, with the brick table; then without it -------------
     render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = 0
+    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
     frames, argb, accum = timed_frames(render_mod, vol, opts, tables, bricks)
-    launches, packs = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES}, k2.PACKS
+    launches, packs = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
+                       "K2c": k2.REFLECTIVE_LAUNCHES}, k2.PACKS
     frame_s = sorted(frames)[1]
     digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
     argb_digest = hashlib.sha256(argb.tobytes()).hexdigest()
     log(f"main path (brick table): frames {['%.4f' % f for f in frames]} s, median "
         f"{frame_s:.4f} s; launches {launches}, packs in K2 {packs}; accum sha256 {digest}; "
         f"argb sha256 {argb_digest}")
-    require(launches == {"K1": 0, "K2": 3} and packs == 3,
+    require(launches == {"K1": 0, "K2": 3, "K2c": 0} and packs == 3,
             f"expected 1 K2 launch a frame, packing the image, over 3 frames, got {launches} "
             f"and {packs} packs")
     require(torch.equal(accum, a_frame), "main path accum differs from the checked frame")
@@ -392,6 +501,47 @@ def main():
         f"{k2_pack_ms / 16:.4f} ms a pass); the fused pack's cost {fused_ms:.5f} ms; "
         f"{k2_raw_ms:.4f} ms without the table ({k2_raw_ms / 16:.4f}); K2 device time over "
         f"the median frame: {busy:.4f}")
+
+    # -- 7b. the reflective path: the reference's default still (`metal`) ----
+    # once through api.test_render, then its frames and K2c on their own
+    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    argb_m = api.test_render(width=512, height=512, iter=16, vres=256, mat="metal",
+                             out_path=None, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    first_m_s = time.perf_counter() - t0
+    launches_m, packs_m = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
+                           "K2c": k2.REFLECTIVE_LAUNCHES}, k2.PACKS
+    require(launches_m == {"K1": 0, "K2": 1, "K2c": 1} and packs_m == 1,
+            f"expected one K2c launch, packing the image, got {launches_m} and {packs_m} packs")
+    frames_m, argb_m2, accum_m = timed_frames(render_mod, vol, opts_m, tables, bricks, n=5)
+    frame_m_s = sorted(frames_m)[2]
+    require(np.array_equal(argb_m, argb_m2), "api.test_render's metal image differs from "
+            "render_image's")
+    require(torch.equal(accum_m, a_frame_m), "metal path accum differs from the checked frame")
+    require(bool(torch.isfinite(accum_m).all()), "metal path accum not finite")
+    require(np.array_equal(argb_m2.reshape(-1), k1.tonemap_pack_plain(accum_m, opts_m.gamma)
+                           .cpu().numpy().view(np.uint32)),
+            "metal path image differs from K1's plain pack of its accum")
+    n_colors_m = len(np.unique(argb_m))
+    require(n_colors_m > 100, f"metal path image has only {n_colors_m} distinct colours")
+    digest_m = hashlib.sha256(accum_m.cpu().numpy().tobytes()).hexdigest()
+    argb_digest_m = hashlib.sha256(argb_m2.tobytes()).hexdigest()
+
+    def k2c_frame():
+        return k2.render_passes(vol, opts_m, tables, times, acc_k, bricks, argb_k)
+
+    k2c_ms = [bench_prims.kernel_ms(k2c_frame, 3) for _ in range(2)]
+    k2c_lanes = k2.count_lanes(vol, opts_m, tables, times, zero.clone(), bricks)
+    log(f"reflective path (metal, 512^2, 16 spp, brick table) through api.test_render: "
+        f"{first_m_s:.3f} s with the volume and table builds; launches {launches_m}, packs in "
+        f"K2c {packs_m}; {n_colors_m} distinct colours; frames of render_image "
+        f"{['%.4f' % f for f in frames_m]} s, median {frame_m_s:.4f} s; K2c per frame "
+        f"{k2c_ms[0]:.4f}, {k2c_ms[1]:.4f} ms ({sum(k2c_ms) / 32:.4f} ms a pass); accum sha256 "
+        f"{digest_m}; argb sha256 {argb_digest_m}; on {card}")
+    log(f"K2c counting build, one metal frame: {k2c_lanes['samples']} march samples; "
+        "active-lane share " + ", ".join(f"{n} {k2c_lanes[n]['active']:.4f}"
+                                          for n in k2.COUNTED_LOOPS))
 
     # -- 8. the primitive probes E1-E5 through their entry point -------------
     for name in prims.LAUNCHES:
@@ -486,6 +636,8 @@ def main():
     k2_bound = bound(k2_bytes, k2_lanes["samples"] * OPS_PER_SAMPLE)
     k2_raw_bound = bound(k2_bytes - bricks.rows.numel() * 4,
                          16 * plain["raw"]["samples"] * OPS_PER_SAMPLE)
+    # K2c: the same bytes, the march samples of the metal frame
+    k2c_bound = bound(k2_bytes, k2c_lanes["samples"] * OPS_PER_SAMPLE)
     # E bounds: each table element the rounds touch counts once, at these inputs
     reps, k, lanes = prims.REPS_IN, prims.K, prims.LANES
     e1_rows = touched(x["e1_sidx"].cpu().numpy()[:, None], prims.S, reps)
@@ -521,7 +673,25 @@ def main():
                      samples=k2_lanes["samples"],
                      plain_samples_per_pass=plain["accel"]["samples"],
                      plain_samples_per_pass_raw=plain["raw"]["samples"],
-                     active_lanes={n: k2_lanes[n]["active"] for n in k2.COUNTED_LOOPS}),
+                     active_lanes={n: k2_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
+                     ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2 ")}),
+        # the bounce loop of shade_after_march (shade.py:363) in K2's
+        # reflective instance; ms is a metal frame at 512^2 (16 passes),
+        # plain_ms the plain version's 2 passes at 64x48
+        kernel_entry("K2c render_pass (reflective)", "raymarchcl_tpu_torch/csrc/render_pass.cu",
+                     "raymarchcl_tpu/ops/shade.py:363", launches_m["K2c"], k2c_err,
+                     sum(k2c_ms) / 2, k2c_cases["metal"][1], k2c_bound, None,
+                     ms_runs=k2c_ms, ms_per_pass=sum(k2c_ms) / 32, frame_s=frame_m_s,
+                     plain_size="64x48, 2 passes, vres 64",
+                     plain_ms_512_pass=k2c_plain512_ms, agree_512_pass=k2c_512[0],
+                     max_abs_err_512_pass=k2c_512[2],
+                     plain_samples_512_pass=k2c_plain512_samples,
+                     plain_ms_by_preset={m: v[1] for m, v in k2c_cases.items()},
+                     max_abs_err_by_preset={m: v[0] for m, v in k2c_cases.items()},
+                     samples=k2c_lanes["samples"],
+                     active_lanes={n: k2c_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
+                     accum_sha256=digest_m, argb_sha256=argb_digest_m,
+                     ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2c")}),
     ]
     srcs = {"E1": ("e1_row_fetch", 71), "E2": ("e2_sublane_gather", 107),
             "E3": ("e3_probe", 136), "E4": ("e4_transpose", 174), "E5": ("e5_while", 199)}
@@ -550,7 +720,7 @@ def main():
             bench[b]["us"] / 1e3, e_plain_ms[b], e_bounds[key],
             {"E1": e1_lib_ms, "E4": e4_lib_ms}.get(key), **extra))
     log(json.dumps({"kernels": kernels, "launch_floor_ms": bench["floor"]["us"] / 1e3,
-                    "frame_s": frame_s, "frame_raw_s": frame_raw_s,
+                    "frame_s": frame_s, "frame_raw_s": frame_raw_s, "frame_metal_s": frame_m_s,
                     "busy_untraced": busy, "accum_sha256": digest, "argb_sha256": argb_digest,
                     "accel_build_s": t_accel, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -77,8 +77,8 @@ def render_frame(volume, vres, *, iter=1, seed=0, times=None, accum=None, accel=
 def test_render(width=640, height=360, iter=1, vres=256, mat="metal", vname=None,
                 out_path="foo.png", theta=135, dist=2.25, seed=0, verbose=True,
                 device="cuda", accel=True, **opt_kwargs):
-    """Still-image entry point (reference: core.clj:154-179 incl. defaults;
-    presets with reflections are not ported yet and raise)."""
+    """Still-image entry point (reference: core.clj:154-179 incl. defaults:
+    the `metal` preset with its 3 reflection bounces)."""
     _check_device(device)
     if vname:
         volume, actual_vres = voxio.load_volume(vname)

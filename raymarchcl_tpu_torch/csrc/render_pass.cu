@@ -3,8 +3,9 @@
 // Replaces the per-pass jnp program of the JAX package (on the TPU it is XLA
 // code, with no Pallas source): sampling.init_render_state,
 // camera.camera_ray_lookat, march.raymarch with the smooth normal,
-// shade.shade_after_march (reflectIter == 0: ambient_occlusion, shadow,
-// light_combine, apply_atmosphere) and render.render_pass's blend. A thread
+// shade.shade_after_march (ambient_occlusion, shadow, light_combine,
+// apply_atmosphere and, for reflectIter > 0, the bounce loop of
+// basic_scene_color with the fast normal) and render.render_pass's blend. A thread
 // runs the reference's own per-ray loops (RenderImage, renderer.cl:478-494;
 // tests/scalar_ref.py), i.e. the semantics of the JAX package's lane-parallel
 // loops, for every pass of its pixel in order. Plain version: the functions
@@ -41,7 +42,16 @@
 // - Any aoIter. The AO probes' distances and sample caps come beside the
 //   pass times (one copy a frame) and are read through the read-only path.
 //
-// A third instance (the counting build, never on the main path) counts,
+// - The reflective presets (reflectIter > 0) are instances of their own
+//   (kReflect), so the bounce loop adds no code or registers to the `ao`
+//   instances. A thread runs its pixel's bounces in order and stops at the
+//   first that misses or hits a material with r0 < 0.001, as the plain
+//   version's frozen lanes do. Lighting is inlined at the primary hit and in
+//   the bounce loop: behind one __noinline__ call (one copy of its code, a
+//   64-byte stack frame) a metal frame took 54.1 ms against 41.5-41.9
+//   inlined, with no spill either way (PERF.md).
+//
+// The counting build (never on the main path; `ao` and reflective) counts,
 // per loop, warp iterations and the active lanes in them. Measured slower
 // and left out: a 64-register cap (80 are used, 3 blocks an SM), one loop
 // over sphere steps and samples (more registers, step bookkeeping at a
@@ -56,16 +66,17 @@ constexpr int kTileW = 8, kTileH = 4;  // one warp's pixels
 
 // The loops the counting build counts (order of the counts array)
 enum CountedLoop { kPrimarySamples, kPrimarySteps, kAoSamples, kShadowSamples, kShadowSteps,
-                   kCountedLoops };
+                   kBounceSamples, kBounceSteps, kCountedLoops };
 
 struct Counts {
   unsigned iters[kCountedLoops], lanes[kCountedLoops];
 };
 
-template <bool kB, bool kC>
+template <bool kB, bool kC, bool kR>
 struct Build {
-  static constexpr bool kBricks = kB;  // march over the brick table
-  static constexpr bool kCount = kC;   // count loop iterations and lanes
+  static constexpr bool kBricks = kB;   // march over the brick table
+  static constexpr bool kCount = kC;    // count loop iterations and lanes
+  static constexpr bool kReflect = kR;  // the bounce loop (reflectIter > 0)
 };
 
 struct Scene {
@@ -128,6 +139,15 @@ __device__ __forceinline__ float occupancy(const Scene& S, int qx, int qy, int q
 // march.voxel_material
 __device__ __forceinline__ float voxel_material(int v) {
   return v < 84 ? 1.0f : (v < 168 ? 2.0f : 3.0f);
+}
+
+// march.voxel_normal_fast: central difference of the occupancy, normalized
+// (0 -> +y)
+__device__ V3f voxel_normal_fast(const Scene& S, int qx, int qy, int qz) {
+  float nx = occupancy(S, qx + 1, qy, qz) - occupancy(S, qx - 1, qy, qz);
+  float ny = occupancy(S, qx, qy + 1, qz) - occupancy(S, qx, qy - 1, qz);
+  float nz = occupancy(S, qx, qy, qz + 1) - occupancy(S, qx, qy, qz - 1);
+  return normalize3({-nx, -ny, -nz});
 }
 
 // march.voxel_normal_smooth: gradient sum over the occupied 3x3x3
@@ -279,10 +299,11 @@ struct Isec {
 
 // march.raymarch: sphere trace of at most max_steps steps, miss rewrite.
 // truncate caps each march at the samples that can still land within
-// max_dist (shadow rays, counted as such).
+// max_dist (shadow rays, counted as such); bounce counts a reflection ray's
+// loops as its own.
 template <class K>
 __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dist,
-                         int max_steps, bool active, bool truncate) {
+                         int max_steps, bool active, bool truncate, bool bounce = false) {
   const RmclParams& P = S.P;
   float inv_steplen = 0.0f;
   if (truncate) inv_steplen = 1.0f / (P.shadowBaseStep * fmaxf(norm3(ray_dir), 1e-20f));
@@ -295,7 +316,7 @@ __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dis
   r.gd = 0.0f;
   if (active) {
     for (int s = 1; s <= max_steps; ++s) {
-      tick<K>(S, truncate ? kShadowSteps : kPrimarySteps);
+      tick<K>(S, truncate ? kShadowSteps : (bounce ? kBounceSteps : kPrimarySteps));
       V3f p = fma3(ray_dir, dist, ray_pos);
       float idist = intersects_box(P, p, ray_dir);
       int lim = P.maxVoxelIter;
@@ -303,8 +324,9 @@ __device__ Isec raymarch(const Scene& S, V3f ray_pos, V3f ray_dir, float max_dis
         float cap = fmaf((max_dist - dist + P.eps) + P.voxelSize, inv_steplen, 3.0f);
         lim = min(lim, __float2int_rz(fminf(fmaxf(cap, 0.0f), (float)P.maxVoxelIter)));
       }
-      SceneDist sd = distance_to_scene<K>(S, p, ray_dir, P.marchScale, lim, true, idist, true,
-                                          truncate ? kShadowSamples : kPrimarySamples);
+      SceneDist sd = distance_to_scene<K>(
+          S, p, ray_dir, P.marchScale, lim, true, idist, true,
+          truncate ? kShadowSamples : (bounce ? kBounceSamples : kPrimarySamples));
       bool done = fabsf(sd.dist) <= P.eps || dist >= max_dist;
       r.obj = __float2int_rz(sd.mat);
       r.pos = p;
@@ -430,6 +452,36 @@ __device__ V3f apply_atmosphere(const Scene& S, uint32_t lseed, V3f ray_pos, V3f
   return col;
 }
 
+// shade.shade_after_march's bounce loop with shade.basic_scene_color: the
+// sum of the bounces' colours from the primary hit at pos with the glossy
+// normal norm_p. A bounce reflects about the last normal
+// (vecmath.reflect_fused), marches from 0.0075 along it with the fast
+// normal, hits where its object id is >= 0, is lit with the sky's
+// reflection and fogged from its origin; the loop ends after reflectIter
+// bounces, at a miss, or at a hit material with r0 < 0.001.
+template <class K>
+__device__ V3f bounce_sum(const Scene& S, uint32_t lseed, V3f r_dir, V3f r_pos, V3f r_norm) {
+  const RmclParams& P = S.P;
+  V3f acc = {0.0f, 0.0f, 0.0f};
+  for (int b = 0; b < P.reflectIter; ++b) {
+    r_dir = reflect_fused3(r_dir, r_norm);
+    V3f origin = fma3(r_dir, 0.0075f, r_pos);  // renderer.cl:434
+    Isec bi = raymarch<K>(S, origin, r_dir, P.maxDist, P.maxIter, true, false, true);
+    V3f n = bi.hit ? voxel_normal_fast(S, bi.qx, bi.qy, bi.qz)
+                   : (bi.gd < 1e5f ? V3f{0.0f, 1.0f, 0.0f} : neg3(r_dir));
+    bool hit = bi.obj >= 0;  // not distance < maxDist (renderer.cl:395)
+    int mat = min(max(bi.obj, 0), 3);
+    V3f col = hit ? object_lighting<K>(S, lseed, r_dir, bi.pos, mat, n,
+                                        sky_gradient(P, reflect3(r_dir, n)))
+                  : sky_gradient(P, r_dir);
+    acc = add3(acc, apply_atmosphere(S, lseed, origin, r_dir, bi.dist, col));
+    if (!hit || !(P.matR0[mat] >= 0.001f)) break;  // renderer.cl:436-437
+    r_pos = bi.pos;
+    r_norm = n;
+  }
+  return acc;
+}
+
 // One pass's colour of pixel (x, y), pid = y*width + x
 template <class K>
 __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
@@ -453,7 +505,7 @@ __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
   V3f ray_dir = normalize3(add3(add3(mul3(right, vcx), mul3(upv, vcy)), forward));
   V3f ray_pos = eye;
 
-  // shade.scene_color -> shade_after_march (reflectIter == 0)
+  // shade.scene_color -> shade_after_march
   Isec isec = raymarch<K>(S, ray_pos, ray_dir, P.maxDist, P.maxIter, true, false);
   V3f normal = isec.hit ? voxel_normal_smooth(S, isec.qx, isec.qy, isec.qz)
                         : (isec.gd < 1e5f ? V3f{0.0f, 1.0f, 0.0f} : neg3(ray_dir));
@@ -465,6 +517,9 @@ __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
     // glossy perturbation, not re-normalized (renderer.cl:420)
     V3f norm_p = fma3(mc_normal, 1.0f / (smoothness * 200.0f + 5.0f), normal);
     V3f reflect_col = sky_gradient(P, reflect3(ray_dir, norm_p));
+    if constexpr (K::kReflect) {
+      if (P.matR0[mat] > 0.0f) reflect_col = bounce_sum<K>(S, lseed, ray_dir, isec.pos, norm_p);
+    }
     col = object_lighting<K>(S, lseed, ray_dir, isec.pos, mat, norm_p, reflect_col);
   }
   return apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
@@ -550,21 +605,33 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
 // brick table, or null for the raw march; argb: null, or width*height packed
 // pixels of the final accum (with npass == 0, of accum as given); next_tile:
 // one zeroed int; counts: null, or 2*kCountedLoops zeroed uint64 for the
-// counting build (which needs the brick table)
+// counting build (which needs the brick table). reflectIter > 0 selects the
+// reflective instances.
+template <bool kR>
+static int dispatch(const RmclParams* params, const uint8_t* vol, const float* tables,
+                    const float* times, int npass, const int* rows, float* accum,
+                    uint32_t* argb, int* next_tile, unsigned long long* counts,
+                    cudaStream_t stream) {
+  if (counts)
+    return launch<Build<true, true, kR>>(params, vol, tables, times, npass, rows, accum, argb,
+                                         next_tile, counts, stream);
+  if (rows)
+    return launch<Build<true, false, kR>>(params, vol, tables, times, npass, rows, accum, argb,
+                                          next_tile, nullptr, stream);
+  return launch<Build<false, false, kR>>(params, vol, tables, times, npass, rows, accum, argb,
+                                         next_tile, nullptr, stream);
+}
+
 extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
                                   const float* tables, const float* times, int npass,
                                   const int* rows, float* accum, uint32_t* argb, int* next_tile,
                                   unsigned long long* counts, cudaStream_t stream) {
   if (npass < 0 || params->aoIter < 0) return (int)cudaErrorInvalidValue;
   if ((npass == 0 && !argb) || params->width <= 0 || params->height <= 0) return 0;
-  if (counts) {
-    if (!rows) return (int)cudaErrorInvalidValue;
-    return launch<Build<true, true>>(params, vol, tables, times, npass, rows, accum, argb,
-                                     next_tile, counts, stream);
-  }
-  if (rows)
-    return launch<Build<true, false>>(params, vol, tables, times, npass, rows, accum, argb,
-                                      next_tile, nullptr, stream);
-  return launch<Build<false, false>>(params, vol, tables, times, npass, rows, accum, argb,
-                                     next_tile, nullptr, stream);
+  if (counts && !rows) return (int)cudaErrorInvalidValue;
+  if (params->reflectIter > 0)
+    return dispatch<true>(params, vol, tables, times, npass, rows, accum, argb, next_tile,
+                          counts, stream);
+  return dispatch<false>(params, vol, tables, times, npass, rows, accum, argb, next_tile,
+                         counts, stream);
 }

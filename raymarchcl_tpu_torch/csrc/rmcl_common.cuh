@@ -19,6 +19,7 @@ struct RmclParams {
   int width, height;
   int rx, ry, rz, rxy;
   int maxIter, maxVoxelIter, shadowIter, aoIter, numLights, isoVal;
+  int reflectIter;           // bounces a pass; > 0 selects the reflective instance
   int tableLen;              // MC table entries (float4) of one pass
   int edge, brickShift, nbx, nby, rowWords;  // brick table (ops/accel.py); 0 without
   int aoSteps;               // maxVoxelIter / 2
@@ -75,6 +76,14 @@ __device__ __forceinline__ V3f normalize3(V3f a) {
 // vecmath.reflect
 __device__ __forceinline__ V3f reflect3(V3f v, V3f n) {
   return sub3(v, mul3(n, 2.0f * dot3(v, n)));
+}
+
+// vecmath.reflect_fused: the bounce direction as XLA:CPU contracts it, each
+// component fma(-n, 2*dot, v), the x component's dot in its own order
+__device__ __forceinline__ V3f reflect_fused3(V3f v, V3f n) {
+  float s = 2.0f * dot3(v, n);
+  float sx = 2.0f * fmaf(v.z, n.z, fmaf(v.y, n.y, v.x * n.x));
+  return {fmaf(-n.x, sx, v.x), fmaf(-n.y, s, v.y), fmaf(-n.z, s, v.z)};
 }
 
 // sampling.f2u32: cvt.rzi.s32.f32 truncates, saturates and maps NaN to 0,

@@ -21,6 +21,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "raymarchcl_tpu_torch")
 LIB_NAME = "librmcl_torch.so"
+LOG_NAME = "nvcc.log"  # the compiler's output (ptxas -v), kept beside the library
 
 # sm_90a (Hopper). --fmad=false: multiply-adds are fused only where the
 # sources call fmaf(), the sites where the plain version fuses too. No fast
@@ -31,7 +32,9 @@ NVCC_FLAGS = (
 )
 
 _lib = None
-build_info = {}  # path, seconds, compiler log of the build this process loaded
+# path, seconds (0.0 when cached), cached, and the compiler log of the
+# build this process loaded (read back from LOG_NAME on a cached build)
+build_info = {}
 
 
 def _sources():
@@ -61,12 +64,15 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the library unless this exact source/flag set is built;
-    return its path. Raises RuntimeError with nvcc's output on failure."""
+    """Compile the library unless this exact source/flag set is built with
+    its log; return its path. Raises RuntimeError with nvcc's output on
+    failure."""
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     path = os.path.join(out_dir, LIB_NAME)
-    if os.path.isfile(path):
-        build_info.update(path=path, seconds=0.0, log="(cached)")
+    log_path = os.path.join(out_dir, LOG_NAME)
+    if os.path.isfile(path) and os.path.isfile(log_path):
+        with open(log_path) as f:
+            build_info.update(path=path, seconds=0.0, cached=True, log=f.read())
         return path
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -91,8 +97,12 @@ def build() -> str:
     for cmd, proc, log in zip(cmds, procs, logs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    log = "".join(logs)
+    with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+        f.write(log)
+    os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
     os.replace(tmp, path)
-    build_info.update(path=path, seconds=time.perf_counter() - t0, log="".join(logs))
+    build_info.update(path=path, seconds=time.perf_counter() - t0, cached=False, log=log)
     return path
 
 

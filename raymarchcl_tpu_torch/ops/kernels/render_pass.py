@@ -5,9 +5,11 @@ On the TPU each pass is jnp code lowered by XLA (`raymarchcl_tpu/ops`:
 sampling, camera, march, shade and render.render_pass); there is no Pallas
 source. On the H100 a frame is one launch of a hand-written CUDA kernel,
 csrc/render_pass.cu, which notes what bounds it: a thread renders every
-pass of its pixel in order. Its plain version is `render_pass_plain`, built
-from this package's ops modules, once per pass. Both march over the brick
-table (ops/accel.py) when one is given, with the same result as without it.
+pass of its pixel in order. Presets with reflections (reflectIter > 0) run
+the kernel's reflective instances, which add the bounce loop. Its plain
+version is `render_pass_plain`, built from this package's ops modules, once
+per pass. Both march over the brick table (ops/accel.py) when one is given,
+with the same result as without it.
 """
 
 from __future__ import annotations
@@ -20,19 +22,20 @@ import torch
 from ..accel import Accel, brick_dims, row_words
 from ..camera import camera_ray_lookat
 from ..sampling import init_render_state
-from ..shade import REFLECTIONS_NOT_PORTED, ao_step_dist, ao_trunc_steps, scene_color
+from ..shade import ao_step_dist, ao_trunc_steps, scene_color
 from ..vecmath import fma
 from . import build
 from .tonemap import tonemap_pack_plain
 
 LAUNCHES = 0  # K2 launches (one per render_passes call; plain-version calls excluded)
+REFLECTIVE_LAUNCHES = 0  # those of LAUNCHES that ran the reflective instance (K2c)
 PACKS = 0  # K2 launches that also packed the image (K1's pack as their epilogue)
 
 # The loops the counting build counts, in the order of csrc/render_pass.cu's
 # CountedLoop: (warp iterations, active lanes) of each
 COUNTED_LOOPS = ("primary_samples", "primary_steps", "ao_samples", "shadow_samples",
-                 "shadow_steps")
-SAMPLE_LOOPS = ("primary_samples", "ao_samples", "shadow_samples")
+                 "shadow_steps", "bounce_samples", "bounce_steps")
+SAMPLE_LOOPS = ("primary_samples", "ao_samples", "shadow_samples", "bounce_samples")
 
 MAX_LIGHTS = 4  # the kernel's light arrays; no preset of the JAX package has more
 
@@ -46,7 +49,7 @@ class RmclParams(ctypes.Structure):
         ("width", _i), ("height", _i),
         ("rx", _i), ("ry", _i), ("rz", _i), ("rxy", _i),
         ("maxIter", _i), ("maxVoxelIter", _i), ("shadowIter", _i), ("aoIter", _i),
-        ("numLights", _i), ("isoVal", _i), ("tableLen", _i),
+        ("numLights", _i), ("isoVal", _i), ("reflectIter", _i), ("tableLen", _i),
         ("edge", _i), ("brickShift", _i), ("nbx", _i), ("nby", _i), ("rowWords", _i),
         ("aoSteps", _i),
         ("marchScale", _f), ("aoScale", _f), ("shadowBaseStep", _f),
@@ -69,9 +72,8 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
     """The kernel's parameter block, one per frame (the pass times and AO
     probes go beside it, `launch_block`); derived constants in float32
     exactly as the plain version computes them. The brick fields stay 0
-    without a brick table."""
-    if opts.reflectIter > 0:
-        raise NotImplementedError(REFLECTIONS_NOT_PORTED)
+    without a brick table; reflectIter > 0 selects the reflective
+    instance."""
     if not 1 <= opts.numLights <= MAX_LIGHTS:
         raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}] (the kernel's light arrays; "
                          f"the JAX presets use 1 or 2), got {opts.numLights}")
@@ -81,7 +83,8 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
     p = RmclParams()
     p.width, p.height = opts.resolution
     p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
-    for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal"):
+    for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal",
+              "reflectIter"):
         setattr(p, k, getattr(opts, k))
     p.tableLen = opts.mcTableLength
     if accel is not None:
@@ -186,7 +189,7 @@ def _launch(vol, opts, tables, times, accum, accel, counts, argb=None) -> None:
         raise ValueError(f"unsupported device {accum.device}")
     if tables.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
-    global LAUNCHES, PACKS
+    global LAUNCHES, PACKS, REFLECTIVE_LAUNCHES
     params = make_params(opts, accel)
     # pinned and non-blocking: a pageable copy would wait for the stream
     block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
@@ -202,6 +205,8 @@ def _launch(vol, opts, tables, times, accum, accel, counts, argb=None) -> None:
                                     None if counts is None else counts.data_ptr(), stream)
     build.check(rc, "rmcl_render_passes")
     LAUNCHES += 1
+    if opts.reflectIter > 0:
+        REFLECTIVE_LAUNCHES += 1
     if argb is not None:
         PACKS += 1
 

@@ -1,5 +1,5 @@
 """Marcher, plain PyTorch: box intersection, voxel sampling, the fixed-step
-volume march, the sphere trace and the smooth voxel normal.
+volume march, the sphere trace and the smooth and fast voxel normals.
 
 Counterpart of `raymarchcl_tpu/ops/march.py` (reference:
 renderer.cl:146-257), with and without its brick table (ops/accel.py).
@@ -92,6 +92,17 @@ def voxel_material(v):
 _r5 = np.arange(-2, 3)
 _OFF5 = [torch.from_numpy(o.reshape(-1).copy())
          for o in np.meshgrid(_r5, _r5, _r5, indexing="ij")]
+
+
+def voxel_normal_fast(vol, opts, q: V3) -> V3:
+    """Central difference of the occupancy, normalized (renderer.cl:180-188
+    and :228). A voxel with no gradient gives +y (vecmath.normalize)."""
+    def occ(dx, dy, dz):
+        return occupancy_i(vol, opts, V3(q.x + dx, q.y + dy, q.z + dz))
+
+    n = V3(occ(1, 0, 0) - occ(-1, 0, 0), occ(0, 1, 0) - occ(0, -1, 0),
+           occ(0, 0, 1) - occ(0, 0, -1))
+    return normalize(-n)
 
 
 def voxel_normal_smooth(vol, opts, q: V3) -> V3:
@@ -268,18 +279,21 @@ def distance_to_scene(vol, opts, rpos: V3, rdir: V3, steps, active, idist=None,
             "hit": hit, "q": q, "gd": gd}
 
 
-def isec_normal(vol, opts, hit, q, gd, rdir: V3):
-    """Normal of a raymarch result: the smooth voxel normal on a volume hit,
-    else +y for the ground and -dir for the backstop (renderer.cl:212)."""
+def isec_normal(vol, opts, hit, q, gd, rdir: V3, smooth=True):
+    """Normal of a raymarch result: the smooth (or, for reflection rays,
+    the fast) voxel normal on a volume hit, else +y for the ground and -dir
+    for the backstop (renderer.cl:212)."""
     up = V3(torch.zeros_like(gd), torch.ones_like(gd), torch.zeros_like(gd))
     ground_n = where3(gd < 1e5, up, -rdir)
-    return where3(hit, voxel_normal_smooth(vol, opts, q), ground_n)
+    vn = (voxel_normal_smooth if smooth else voxel_normal_fast)(vol, opts, q)
+    return where3(hit, vn, ground_n)
 
 
 def raymarch(vol, opts, ray_pos: V3, ray_dir: V3, max_dist, max_steps, active,
-             want_normal=True, truncate_to_max_dist=False, accel=None):
+             want_normal=True, truncate_to_max_dist=False, accel=None, smooth=True):
     """Sphere trace (renderer.cl:239-257): isec dict pos, distance,
-    object_id (and the smooth normal when want_normal).
+    object_id (and, when want_normal, the smooth normal, or the fast one
+    with smooth=False).
 
     Each step re-marches the volume from the current position (over the
     brick table `accel` when given, with the same results); a ray stops
@@ -338,5 +352,5 @@ def raymarch(vol, opts, ray_pos: V3, ray_dir: V3, max_dist, max_steps, active,
         "object_id": torch.where(miss, -1, obj),
     }
     if want_normal:
-        isec["normal"] = isec_normal(vol, opts, hit & ~miss, q, gd, ray_dir)
+        isec["normal"] = isec_normal(vol, opts, hit & ~miss, q, gd, ray_dir, smooth)
     return isec

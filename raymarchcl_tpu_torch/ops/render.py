@@ -20,7 +20,6 @@ import torch
 from .kernels import tonemap as k_tonemap
 from .kernels.render_pass import render_pass, render_passes  # noqa: F401  (blend in place)
 from .kernels.tonemap import tonemap  # noqa: F401  (re-export)
-from .shade import REFLECTIONS_NOT_PORTED
 
 # Per-pass time step of the still-image path (core.clj:105).
 TIME_STEP_INIT = 0.333
@@ -46,8 +45,6 @@ def render_image(vol, opts, mc_tables, times=None, accum=None, accel=None):
     (N, 3) float32 tensor). `accum` may be passed back in to continue
     refining (core.clj:194-208).
     """
-    if opts.reflectIter > 0:
-        raise NotImplementedError(REFLECTIONS_NOT_PORTED)
     n_passes = mc_tables.shape[0]
     if times is None:
         times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT

@@ -1,13 +1,13 @@
 """Shading, plain PyTorch: sky, fog and flares, point lights with hard
-shadows, Blinn-Phong + Schlick, Monte-Carlo AO.
+shadows, Blinn-Phong + Schlick, Monte-Carlo AO and multi-bounce
+reflections.
 
 Counterpart of `raymarchcl_tpu/ops/shade.py` (reference:
-renderer.cl:259-446) for presets without reflections (`reflectIter == 0`).
-Reference quirks kept: albedo multiplies the diffuse sum inside the light
-loop (renderer.cl:376); schlick() is 0, not r0, when its d term is 0
-(renderer.cl:310); the glossy shading normal is not re-normalized
-(renderer.cl:420); all lights of a pixel share one jitter sample
-(renderer.cl:267).
+renderer.cl:259-446). Reference quirks kept: albedo multiplies the diffuse
+sum inside the light loop (renderer.cl:376); schlick() is 0, not r0, when
+its d term is 0 (renderer.cl:310); the glossy shading normal is not
+re-normalized (renderer.cl:420); all lights of a pixel share one jitter
+sample (renderer.cl:267).
 """
 
 from __future__ import annotations
@@ -17,9 +17,7 @@ import torch
 
 from . import sampling
 from .march import distance_to_scene, raymarch
-from .vecmath import V3, dot, fma, fma3, mix, normalize, reflect, where3
-
-REFLECTIONS_NOT_PORTED = "reflections are not ported yet"
+from .vecmath import V3, dot, fma, fma3, mix, normalize, reflect, reflect_fused, where3
 
 
 def sky_gradient(opts, rdir: V3) -> V3:
@@ -186,6 +184,25 @@ def object_lighting(vol, opts, table, px, py, ray_dir: V3, isec_pos: V3, mat_idx
                          reflect_col, ao, lt, sfs)
 
 
+def basic_scene_color(vol, opts, table, px, py, ray_pos: V3, ray_dir: V3, active,
+                      accel=None):
+    """One bounce's colour (renderer.cl:383-405): a fast-normal raymarch,
+    lighting with a sky reflection, atmosphere. A bounce hits where its
+    object id is >= 0 (not distance < maxDist as the primary ray). Returns
+    (colour V3, isec)."""
+    isec = raymarch(vol, opts, ray_pos, ray_dir, opts.maxDist, opts.maxIter, active,
+                    accel=accel, smooth=False)
+    sky = sky_gradient(opts, ray_dir)
+    hit = isec["object_id"] >= 0
+    mat_idx = torch.clamp(isec["object_id"], 0, 3)
+    refl_sky = sky_gradient(opts, reflect(ray_dir, isec["normal"]))
+    lit = object_lighting(vol, opts, table, px, py, ray_dir, isec["pos"], mat_idx,
+                          isec["normal"], refl_sky, active & hit, accel)
+    col = apply_atmosphere(opts, table, px, py, ray_pos, ray_dir, isec["distance"],
+                           where3(hit, lit, sky))
+    return col, isec
+
+
 def scene_color(vol, opts, table, state, ray_pos: V3, ray_dir: V3, accel=None) -> V3:
     """Primary shading (renderer.cl:407-446): smooth-normal raymarch, then
     shade_after_march. Every march takes the brick table `accel` when given."""
@@ -199,17 +216,36 @@ def scene_color(vol, opts, table, state, ray_pos: V3, ray_dir: V3, accel=None) -
 def shade_after_march(vol, opts, table, px, py, mc_normal: V3, ray_pos: V3,
                       ray_dir: V3, isec, accel=None) -> V3:
     """Everything in sceneColor after the primary raymarch
-    (renderer.cl:414-445) for presets without reflections: glossy normal,
-    sky reflection, lighting, atmosphere."""
-    if opts.reflectIter > 0:
-        raise NotImplementedError(REFLECTIONS_NOT_PORTED)
+    (renderer.cl:414-445): glossy normal, the bounce loop or the sky
+    reflection, lighting, atmosphere.
+
+    The bounce loop runs reflectIter times with frozen inactive lanes: a
+    lane bounces while its primary ray hit a reflective surface (r0 > 0)
+    and every bounce so far hit a material with r0 >= 0.001
+    (renderer.cl:430-437); the bounce colours sum where r0 > 0."""
     sky = sky_gradient(opts, ray_dir)
     hit = isec["distance"] < opts.maxDist  # renderer.cl:415
     mat_idx = torch.clamp(isec["object_id"], 0, 3)
-    _, _, smoothness = mat_gather(opts, mat_idx)
+    _, r0, smoothness = mat_gather(opts, mat_idx)
     # glossy perturbation, NOT re-normalized (renderer.cl:420)
     norm_p = fma3(mc_normal, 1.0 / (smoothness * 200.0 + 5.0), isec["normal"])
     reflect_col = sky_gradient(opts, reflect(ray_dir, norm_p))
+    if opts.reflectIter > 0:
+        mat_r0 = opts.mat_r0.to(r0.device)
+        b_active = hit & (r0 > 0.0)
+        zero = torch.zeros_like(r0)
+        acc = V3(zero, zero, zero)
+        r_dir, r_pos, r_norm = ray_dir, isec["pos"], norm_p
+        for _ in range(opts.reflectIter):
+            r_dir = where3(b_active, reflect_fused(r_dir, r_norm), r_dir)
+            origin = fma3(r_dir, 0.0075, r_pos)  # renderer.cl:434
+            col_i, bisec = basic_scene_color(vol, opts, table, px, py, origin, r_dir,
+                                             b_active, accel)
+            acc = where3(b_active, acc + col_i, acc)
+            b_id = bisec["object_id"]
+            b_active = b_active & (b_id >= 0) & (mat_r0[torch.clamp(b_id, 0, 3)] >= 0.001)
+            r_pos, r_norm = bisec["pos"], bisec["normal"]
+        reflect_col = where3(r0 > 0.0, acc, reflect_col)
     lit = object_lighting(vol, opts, table, px, py, ray_dir, isec["pos"], mat_idx,
                           norm_p, reflect_col, hit, accel)
     col = where3(hit, lit, sky)

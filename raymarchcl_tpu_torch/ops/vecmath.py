@@ -8,7 +8,7 @@ the contract the CUDA kernel (csrc/rmcl_common.cuh) follows op for op:
   `a*b + c` into an FMA inside a fusion, and the kernel is built with
   `--fmad=false`, so both sides fuse exactly where this module says so:
   at the sites that feed a discontinuity (seeds, march sample positions,
-  ray positions, dot products).
+  ray positions, dot products, bounce directions).
 * `normalize` divides by `sqrt` (one IEEE rounding each). XLA:CPU's
   `rsqrt` differs from `1/sqrt` by up to 2 ulp; that drift stays inside
   the render tolerances.
@@ -111,6 +111,17 @@ def mix(a, b, t):
 def reflect(v: V3, n: V3) -> V3:
     """reflect() (reference: renderer.cl:271-273)."""
     return v - n * (2.0 * dot(v, n))
+
+
+def reflect_fused(v: V3, n: V3) -> V3:
+    """reflect() as XLA:CPU contracts it where the result feeds a march (the
+    bounce directions): each component is fma(-n, 2*dot(v, n), v), and the
+    x component's dot is fma(vz, nz, fma(vy, ny, vx*nx)), its own order
+    (the y and z components take `dot`'s). Read off XLA:CPU's machine code
+    and bit-equal to the JAX package's bounce directions."""
+    s = 2.0 * dot(v, n)
+    sx = 2.0 * fma(v.z, n.z, fma(v.y, n.y, v.x * n.x))
+    return V3(fma(-n.x, sx, v.x), fma(-n.y, s, v.y), fma(-n.z, s, v.z))
 
 
 def where3(mask, a: V3, b: V3) -> V3:

@@ -2,9 +2,11 @@
 for bit on one card.
 
     python raymarchcl_tpu_torch/scripts/frame_digest.py [--root CHECKOUT] [--frames 3]
+        [--mat ao|metal|metal2|orange-stripes]
 
 Renders the main path of chip_smoke.py (gyroid 256^3, 512x512, 16 spp,
-`ao`, orbit camera at theta=135, over the brick table) `--frames` times
+the `--mat` preset, `ao` by default, orbit camera at theta=135, over the
+brick table) `--frames` times
 through ops.render.render_image with the raymarchcl_tpu_torch package of
 the checkout at --root (default: the one holding this file), and prints
 one JSON line: the sha256 of the last frame's accum bytes and of its
@@ -30,6 +32,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here, help="checkout whose package renders")
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--mat", default="ao", help="material preset")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -53,7 +56,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     vol_np, res = api.default_volume(256, cache=False)
     vol = volume_from_numpy(vol_np, dev)
-    opts = render_options(width=512, height=512, iter=16, vres=list(res), mat="ao",
+    opts = render_options(width=512, height=512, iter=16, vres=list(res), mat=args.mat,
                           eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
     tables = make_mc_tables(16, seed=0, device=dev)
     bricks = build_accel(vol, res, opts.isoVal)
@@ -69,7 +72,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         frames.append(time.perf_counter() - t0)
     digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
-    print(json.dumps({"root": os.path.abspath(args.root), "accum_sha256": digest,
+    print(json.dumps({"root": os.path.abspath(args.root), "mat": args.mat, "accum_sha256": digest,
                       "argb_sha256": hashlib.sha256(argb.tobytes()).hexdigest(),
                       "frames_s": frames, "launches": {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES},
                       "packs": getattr(k2, "PACKS", None),

@@ -79,9 +79,9 @@ def test_k2_cuda_brick_table_bit_equal(cuda_device):
     assert float(ok.float().mean()) >= 0.995
 
 
-def _gyroid_case(device, width, height, n_passes):
+def _gyroid_case(device, width, height, n_passes, mat="ao"):
     vres = [48, 48, 48]
-    opts = render_options(width=width, height=height, vres=vres, iter=n_passes, mat="ao",
+    opts = render_options(width=width, height=height, vres=vres, iter=n_passes, mat=mat,
                           eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
     vol = torch.from_numpy(generators.make_gyroid_volume({"vres": vres})).to(device)
     tables = sampling.make_mc_tables(n_passes, seed=0, device=device)
@@ -122,17 +122,25 @@ def test_k2_cuda_ragged_tiles_match_plain(cuda_device, size):
 @pytest.mark.cuda
 def test_k2_cuda_counting_build_same_accum(cuda_device):
     """The counting build renders the same accum as the normal build, and
-    its counts are consistent (lanes <= 32 x iterations, samples taken)."""
+    its counts are consistent (lanes <= 32 x iterations, samples taken; an
+    `ao` frame has no bounce)."""
     opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 2)
+    _check_counting_build(opts, vol, tables, times, bricks, bounces=False)
+
+
+def _check_counting_build(opts, vol, tables, times, bricks, bounces):
     want = k2.render_passes(vol, opts, tables, times,
-                            torch.zeros((opts.num_pixels, 3), device=cuda_device), bricks)
+                            torch.zeros((opts.num_pixels, 3), device=vol.device), bricks)
     acc = torch.zeros_like(want)
     counts = k2.count_lanes(vol, opts, tables, times, acc, bricks)
     assert torch.equal(acc, want)
     for name in k2.COUNTED_LOOPS:
         c = counts[name]
-        assert 0 < c["iters"] <= c["lanes"] <= 32 * c["iters"], (name, c)
-    assert counts["samples"] > 0
+        if name.startswith("bounce") and not bounces:
+            assert c["iters"] == c["lanes"] == 0, (name, c)
+        else:
+            assert 0 < c["iters"] <= c["lanes"] <= 32 * c["iters"], (name, c)
+    assert counts["samples"] == sum(counts[n]["lanes"] for n in k2.SAMPLE_LOOPS) > 0
 
 
 @pytest.mark.cuda
@@ -334,3 +342,53 @@ def test_k2_cuda_any_ao_iter(cuda_device, ao_iter):
     torch.cuda.synchronize()
     ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
     assert float(ok.float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["metal", "metal2", "orange-stripes"])
+def test_k2c_cuda_matches_plain(cuda_device, mat):
+    """K2's reflective instance (K2c) on a two-pass frame: within the
+    tolerance of its plain version on >= 99.5% of pixels, bit-equal with
+    and without the brick table, one launch of both passes bit-equal to two
+    one-pass launches."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 40, 24, 2, mat)
+    assert opts.reflectIter > 0
+    n = opts.num_pixels
+    before = k2.LAUNCHES
+    acc = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device),
+                           bricks)
+    raw = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device))
+    single = torch.zeros((n, 3), device=cuda_device)
+    for p in range(2):
+        k2.render_pass(vol, opts.replace(time=times[p]), tables[p], single, bricks)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 4
+    assert torch.equal(acc, raw) and torch.equal(acc, single)
+    want = torch.zeros((n, 3), device=cuda_device)
+    for p in range(2):
+        want = k2.render_pass_plain(vol, opts.replace(time=times[p]), tables[p], want, bricks)
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+    assert not torch.equal(acc, k2.render_passes(vol, opts.replace(reflectIter=0), tables, times,
+                                                  torch.zeros((n, 3), device=cuda_device),
+                                                  bricks))
+
+
+@pytest.mark.cuda
+def test_k2c_cuda_counting_build(cuda_device):
+    """The counting build of the reflective instance: the same accum as
+    K2c, its bounce loops counted."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 2, "metal")
+    _check_counting_build(opts, vol, tables, times, bricks, bounces=True)
+
+
+@pytest.mark.cuda
+def test_k2c_cuda_fused_pack_bit_equal(cuda_device):
+    """K1's pack as K2c's epilogue at a ragged frame: bit-equal to K1's plain
+    pack of the accum."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 100, 37, 2, "metal")
+    acc = torch.zeros((opts.num_pixels, 3), device=cuda_device)
+    argb = torch.zeros(opts.num_pixels, dtype=torch.int32, device=cuda_device)
+    k2.render_passes(vol, opts, tables, times, acc, bricks, argb)
+    torch.cuda.synchronize()
+    assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))

@@ -97,8 +97,17 @@ def test_k2_wrapper_checks(small_scene):
         k2.render_pass(vol, opts, table, acc[:-1])
     with pytest.raises(ValueError, match="accum"):
         k2.render_pass(vol, opts, table, acc.double())
-    with pytest.raises(NotImplementedError):
-        k2.render_pass(vol, opts.replace(reflectIter=1), table, acc)
+    # a frame with reflections passes the wrapper's checks without raising;
+    # on a CPU tensor the wrapper runs the plain version (no launch counted),
+    # and the bounces change its accum. K2c itself is held against the plain
+    # version in test_torch_cuda.py and chip_smoke.py.
+    refl = opts.replace(reflectIter=1, mat_r0=torch.full((4,), 0.5))
+    want = k2.render_pass_plain(vol, refl, table, acc.clone())
+    before = (k2.LAUNCHES, k2.REFLECTIVE_LAUNCHES)
+    assert torch.equal(k2.render_pass(vol, refl, table, acc.clone()), want)
+    assert (k2.LAUNCHES, k2.REFLECTIVE_LAUNCHES) == before
+    assert not torch.equal(want, k2.render_pass_plain(vol, refl.replace(reflectIter=0), table,
+                                                      acc.clone()))
     bricks = accel.build_accel(vol, opts.voxelRes, opts.isoVal)
     with pytest.raises(ValueError, match="accel rows"):
         k2.render_pass(vol, opts, table, acc, accel.Accel(bricks.rows[:-1], 8))
@@ -199,3 +208,28 @@ def test_build_reports_nvcc_failure(tmp_path, monkeypatch):
     assert len(build.source_hash()) == 16
     assert {os.path.basename(s) for s in build._sources()} >= {
         "tonemap.cu", "render_pass.cu", "prims.cu", "rmcl_common.cuh"}
+
+
+def test_build_keeps_its_log_for_cached_runs(tmp_path, monkeypatch):
+    """A build writes nvcc's log beside the library; a later build of the
+    same sources reads it back, so the ptxas report is the same either way."""
+    fake = tmp_path / "nvcc"
+    # writes the file after -o and prints a ptxas-like line
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 80 registers"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "build_info", {})
+    path = build.build()
+    first = dict(build.build_info)
+    assert first["cached"] is False and first["path"] == path
+    assert "Used 80 registers" in first["log"]
+    assert open(os.path.join(os.path.dirname(path), build.LOG_NAME)).read() == first["log"]
+    build.build_info.clear()
+    assert build.build() == path
+    assert build.build_info["cached"] is True and build.build_info["log"] == first["log"]
+    # a library without its log is built again
+    os.remove(os.path.join(os.path.dirname(path), build.LOG_NAME))
+    build.build()
+    assert build.build_info["cached"] is False and build.build_info["log"] == first["log"]

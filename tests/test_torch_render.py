@@ -1,8 +1,10 @@
-"""The whole `ao` slice of the PyTorch port (K2's plain version, the spp
+"""The whole render path of the PyTorch port (K2's plain version, the spp
 blend and K1's plain pack) against the JAX package's plain render
-(`render_image(accel=None)`, a single band below 8192 pixels), against the
-scalar oracle's cached pixels of tests/test_parity.py's `ao` cases, and the
-port's entry points against the committed `ao` goldens."""
+(`render_image(accel=None)`, a single band below 8192 pixels, for `ao`;
+the reflective presets in test_torch_reflect_frame.py), against the scalar
+oracle's cached pixels of every tests/test_parity.py case, and the port's
+entry points against the committed goldens of the gyroid and terrain
+volumes."""
 
 import os
 
@@ -69,17 +71,38 @@ def test_render_image_matches_jax(vol, case):
     assert len(np.unique(argb)) > 16  # a real image
 
 
-# tests/test_parity.py's `ao` cases: (w, h, t, option kwargs)
+REDUCED = dict(maxIter=48, maxVoxelIter=96, shadowIter=48)
+# tests/test_parity.py's cases: (w, h, t, option kwargs; `volume` names a
+# volume of 32^3 other than the gyroid)
 ORACLE_CASES = {
-    "ao_preset": (12, 8, 0.0, dict(maxIter=48, maxVoxelIter=96, shadowIter=48)),
+    "ao_preset": (12, 8, 0.0, REDUCED),
     "full_default_budgets": (16, 12, 0.0, {}),
     "anim_camera": (32, 24, 0.3333, dict(fov=115.0, eyepos=compute_eyepos(70.0, 2.25, 0.443),
                                          targetpos=[0, -0.15, 0])),
+    "metal_reflections": (8, 6, 0.333, dict(REDUCED, mat="metal")),
+    "dof": (10, 8, 0.999, dict(REDUCED, mat="metal", dof=0.025)),
+    "metal2_terrain": (10, 8, 0.333, dict(REDUCED, mat="metal2", volume="terrain")),
+    "orange_stripes_voxelized_mesh": (10, 8, 0.666, dict(REDUCED, mat="orange-stripes",
+                                                         volume="mesh")),
 }
 
 
+def _volume32(kind, monkeypatch):
+    """test_parity.py's terrain and voxelized-mesh volumes (the numpy
+    voxelizer: the native one is byte-equal, tests/test_native.py)."""
+    if kind == "terrain":
+        return generators.make_terrain({"vres": [32, 32, 32]})
+    from raymarchcl_tpu.models import mesh
+
+    monkeypatch.setattr(mesh, "_native", None)
+    tris = np.array([[[0, 0, 0], [1, 0, 0], [0, 1, 0]], [[0, 0, 0], [1, 0, 0], [0, 0, 1]],
+                     [[0, 0, 0], [0, 1, 0], [0, 0, 1]], [[1, 0, 0], [0, 1, 0], [0, 0, 1]]],
+                    np.float32)
+    return mesh.voxelize_ks(tris.reshape(-1, 3), 32, 2)
+
+
 @pytest.mark.parametrize("case", sorted(ORACLE_CASES))
-def test_scene_color_matches_scalar_oracle(vol, case):
+def test_scene_color_matches_scalar_oracle(vol, case, monkeypatch):
     """Whole pixels against the literal transcription of renderer.cl, read
     from the committed oracle cache (never recomputed: every pixel must be
     a cache hit, so the cache file is not rewritten)."""
@@ -87,6 +110,10 @@ def test_scene_color_matches_scalar_oracle(vol, case):
     kw = dict(width=w, height=h, vres=VRES, iter=1, t=t, mat="ao",
               eyepos=compute_eyepos(135.0, 2.25, 0.35), targetpos=[0, -0.4, 0])
     kw.update(extra)
+    kind = kw.pop("volume", None)
+    if kind is not None:
+        vol = _volume32(kind, monkeypatch)
+        kw["vres"] = [32, 32, 32]
     table = np.array(js.generate_scatter_offsets(seed=3))
     jo, opts = j_render_options(**kw), render_options(**kw)
     state = t_sampling.init_render_state(opts, torch.from_numpy(table), torch.arange(w * h))
@@ -106,20 +133,41 @@ GOLDEN_CASES = {  # tests/test_goldens.py CASES with its BUDGETS, seed 7
     "gyroid-ao": dict(width=64, height=48, iter=2, vres=48),
     "terrain-ao": dict(width=48, height=32, iter=1, vres=40, volume="terrain"),
 }
+REFLECTIVE_GOLDEN_CASES = {
+    "gyroid-metal": dict(width=48, height=32, iter=1, vres=48, mat="metal"),
+    "gyroid-orange": dict(width=48, height=32, iter=1, vres=48, mat="orange-stripes",
+                          theta=60),
+    "gyroid-dof": dict(width=48, height=32, iter=2, vres=48, mat="metal2", dof=0.05),
+}
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_CASES))
 def test_golden_ao(name):
     """The `ao` goldens through the port's entry points on the CPU
     (api.test_render; render_frame for a non-gyroid volume)."""
-    cfg = dict(GOLDEN_CASES[name], mat="ao", maxIter=32, maxVoxelIter=64, shadowIter=32)
+    _check_golden(name, dict(GOLDEN_CASES[name], mat="ao"))
+
+
+@pytest.mark.parametrize("name", sorted(REFLECTIVE_GOLDEN_CASES))
+def test_golden_reflective(name):
+    """The goldens of the reflective presets that need no mesh volume,
+    through api.test_render on the CPU (`gyroid-dof` is metal2 with depth of
+    field)."""
+    _check_golden(name, dict(REFLECTIVE_GOLDEN_CASES[name]))
+
+
+def _check_golden(name, cfg):
+    """Render `cfg` at tests/test_goldens.py's budgets and seed and hold it
+    to the golden at its thresholds (mad < 0.15, frac_off8 < 0.5%)."""
+    cfg.update(maxIter=32, maxVoxelIter=64, shadowIter=32)
+    theta = cfg.pop("theta", 135)
     if cfg.pop("volume", None) == "terrain":
         vres = cfg.pop("vres")
         argb, _ = api.render_frame(
             generators.make_terrain({"vres": [vres] * 3}), (vres,) * 3, seed=7, device="cpu",
-            eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0], **cfg)
+            eyepos=compute_eyepos(theta, 2.25, 0.35), targetpos=[0, -0.4, 0], **cfg)
     else:
-        argb = api.test_render(theta=135, dist=2.25, out_path=None, seed=7, verbose=False,
+        argb = api.test_render(theta=theta, dist=2.25, out_path=None, seed=7, verbose=False,
                                device="cpu", **cfg)
     from PIL import Image
 
@@ -129,15 +177,6 @@ def test_golden_ao(name):
     assert got.shape == want.shape
     d = np.abs(got[..., :3] - want[..., :3])
     assert d.mean() < 0.15 and (d > 8).mean() < 0.005, (d.mean(), (d > 8).mean())
-
-
-def test_reflections_raise(vol):
-    opts = render_options(width=8, height=6, vres=VRES, mat="metal")
-    tables = tables_from_numpy(np.asarray(js.make_mc_tables(1, seed=0)))
-    with pytest.raises(NotImplementedError, match="reflections are not ported yet"):
-        t_render.render_image(volume_from_numpy(vol), opts, tables)
-    with pytest.raises(NotImplementedError):
-        api.render_frame(vol, VRES, width=8, height=6, mat="orange-stripes", device="cpu")
 
 
 def test_entry_points_default_to_cuda(vol, monkeypatch):
