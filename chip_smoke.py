@@ -4,28 +4,29 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc (and
-reports each K2 instance's registers and spills), checks each against its
-plain PyTorch version on the card (K2 also at aoIter 16, and its
-reflective instance K2c for `metal`, `metal2` and `orange-stripes` at
-64x48 and for `metal` on the first pass of the reflective path's 512x512
-frame), checks the `gyroid-ao`, `gyroid-metal`, `gyroid-orange` and `gyroid-dof`
-golden images and the brick table of the 256^3 gyroid, shows that K2 and
-K2c over the brick table are bit-equal to themselves without it, that one
-launch of a frame's 16 passes is bit-equal to 16 one-pass launches and
-that the image K2 packs in its epilogue (K1's function) is bit-equal to
-K1's plain version of its accum, then drives the three paths: the main
-path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
+reports each K2 instance's registers, spills and shared memory), checks
+each against its plain PyTorch version on the card (K2 also at aoIter 16,
+and its reflective instance K2c for `metal`, `metal2` and `orange-stripes`
+at 64x48 and for `metal` on the first pass of the reflective path's 512x512
+frame), checks the `gyroid-ao`, `gyroid-metal`, `gyroid-orange` and
+`gyroid-dof` golden images and the brick table of the 256^3 gyroid, shows
+that K2 and K2c over the brick table are bit-equal to themselves without
+it, that one launch of a frame's 16 passes is bit-equal to 16 one-pass
+launches and that the image K2 packs in its epilogue (K1's function) is
+bit-equal to K1's plain version of its accum, then drives the three paths:
+the main path (gyroid 256^3, 512x512, 16 spp, `ao` preset, orbit camera at
 theta=135, brick table on; one K2 launch a frame, which packs the image)
-through ops.render.render_image, timed with and without the brick table,
-K2 timed with and without the pack; the reflective path (the same frame
-with the `metal` preset, the reference's default still) through
-api.test_render, its frames and K2c timed; and the primitive probes E1-E5
-through raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's
-rounds, E3's probes, E4's reps and E5's trips cost time, their library
-yardsticks and the launch floor. K2's counting build gives the march
-samples of K2's and K2c's bounds and their loops' active-lane shares. One
-line per phase; the second-to-last line is a JSON object with one entry
-per kernel, the last line the JSON result.
+through ops.render.render_image, timed with and without the brick table, K2
+timed with and without the pack; the reflective path (the same frame with
+the `metal` preset, the reference's default still) through api.test_render,
+its frames and K2c timed; and the primitive probes E1-E5 through
+raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's rounds,
+E3's probes, E4's reps and E5's trips cost time, their library yardsticks
+and the launch floor. K2's counting build gives the march samples of K2's
+and K2c's bounds and their loops' warp iterations, lanes and active-lane
+shares. The main path's and the metal frame's accum and image must keep
+their sha256 (DIGESTS). One line per phase; the second-to-last line is a
+JSON object with one entry per kernel, the last line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -62,6 +63,15 @@ GOLDENS = {
     "gyroid-dof": dict(GOLDEN_CASE, width=48, height=32, mat="metal2", dof=0.05),
 }
 REFLECTIVE = ("metal", "metal2", "orange-stripes")
+# sha256 of the accum bytes and of the image of the main path's frame (`ao`)
+# and of the reflective path's (`metal`): a change of K1, K2 or K2c keeps
+# both frames bit-equal to their parent's
+DIGESTS = {
+    "ao": ("d402e556c2fdc8ee63f62fe85e62c644eecbb3a09b07a0d55e6f410e0d75fdfd",
+           "fa6d675da75f37b7e5e0e8c84f26b888784eed444cfcb29cbbe96231af30a4dc"),
+    "metal": ("d75cb27e04d9d1778d78171a21545321da539ee8794c7a52543710528ea17789",
+              "23b5a9f4f8e72bf2897d0c6166fa29c9283a2b654d0863cef2fe151e01502aa8"),
+}
 
 
 def log(msg):
@@ -155,7 +165,8 @@ def check_accel(acc, vol_np, res, iso):
 
 def k2_instances(build_log):
     """Per K2 instance (raw/table, counting, reflective) its ptxas registers,
-    stack frame and spill bytes, read from the nvcc -Xptxas -v log."""
+    stack frame, spill and shared-memory bytes, read from the nvcc -Xptxas
+    -v log."""
     out, name = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '\w*render_passes_kernelI5BuildILb(\d)ELb(\d)"
@@ -174,8 +185,17 @@ def k2_instances(build_log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)  # ptxas names shared memory when it is used
+            out[name]["smem"] = int(m[1]) if m else 0
             name = None
     return out
+
+
+def lanes_line(counts, loops):
+    """Each counted loop's active-lane share, warp iterations and lanes (a
+    sample loop's lanes are its samples)."""
+    return "; ".join(f"{n} {counts[n]['active']:.4f} ({counts[n]['iters']} warp iterations, "
+                     f"{counts[n]['lanes']} lanes)" for n in loops)
 
 
 def timed_frames(render_mod, vol, opts, tables, acc, n=3):
@@ -233,7 +253,8 @@ def main():
     k2_regs = k2_instances(build.build_info["log"])
     log("K2 instances (ptxas): " + "; ".join(
         f"{n} {v.get('registers')} registers, {v.get('stack')} B stack, "
-        f"{v.get('spill_stores')}/{v.get('spill_loads')} B spilled" for n, v in k2_regs.items()))
+        f"{v.get('spill_stores')}/{v.get('spill_loads')} B spilled, {v.get('smem')} B shared"
+        for n, v in k2_regs.items()))
     require(len(k2_regs) == 6 and all(v.get("spill_stores") == 0 and v.get("spill_loads") == 0
                                       for v in k2_regs.values()),
             f"K2's six instances should build without spills: {k2_regs}")
@@ -445,7 +466,7 @@ def main():
     require(frac >= MIN_PIXELS_OK, f"K2 frame at 512^2 agrees on {frac:.4%} < 99.5%")
     k2_lanes = k2.count_lanes(vol, opts, tables, times, zero.clone(), bricks)
     log(f"K2 counting build, one frame: {k2_lanes['samples']} march samples; active-lane "
-        "share " + ", ".join(f"{n} {k2_lanes[n]['active']:.4f}" for n in k2.COUNTED_LOOPS))
+        "share " + lanes_line(k2_lanes, k2.COUNTED_LOOPS))
 
     # -- 7. the main path, with the brick table; then without it -------------
     render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
@@ -463,6 +484,8 @@ def main():
     require(launches == {"K1": 0, "K2": 3, "K2c": 0} and packs == 3,
             f"expected 1 K2 launch a frame, packing the image, over 3 frames, got {launches} "
             f"and {packs} packs")
+    require((digest, argb_digest) == DIGESTS["ao"],
+            f"main path frame differs from its parent's: accum {digest}, image {argb_digest}")
     require(torch.equal(accum, a_frame), "main path accum differs from the checked frame")
     plain_argb = k1.tonemap_pack_plain(accum, opts.gamma).cpu().numpy().view(np.uint32)
     require(np.array_equal(argb.reshape(-1), plain_argb),
@@ -527,6 +550,8 @@ def main():
     require(n_colors_m > 100, f"metal path image has only {n_colors_m} distinct colours")
     digest_m = hashlib.sha256(accum_m.cpu().numpy().tobytes()).hexdigest()
     argb_digest_m = hashlib.sha256(argb_m2.tobytes()).hexdigest()
+    require((digest_m, argb_digest_m) == DIGESTS["metal"],
+            f"metal frame differs from its parent's: accum {digest_m}, image {argb_digest_m}")
 
     def k2c_frame():
         return k2.render_passes(vol, opts_m, tables, times, acc_k, bricks, argb_k)
@@ -540,8 +565,7 @@ def main():
         f"{k2c_ms[0]:.4f}, {k2c_ms[1]:.4f} ms ({sum(k2c_ms) / 32:.4f} ms a pass); accum sha256 "
         f"{digest_m}; argb sha256 {argb_digest_m}; on {card}")
     log(f"K2c counting build, one metal frame: {k2c_lanes['samples']} march samples; "
-        "active-lane share " + ", ".join(f"{n} {k2c_lanes[n]['active']:.4f}"
-                                          for n in k2.COUNTED_LOOPS))
+        "active-lane share " + lanes_line(k2c_lanes, k2.COUNTED_LOOPS))
 
     # -- 8. the primitive probes E1-E5 through their entry point -------------
     for name in prims.LAUNCHES:
@@ -674,6 +698,7 @@ def main():
                      plain_samples_per_pass=plain["accel"]["samples"],
                      plain_samples_per_pass_raw=plain["raw"]["samples"],
                      active_lanes={n: k2_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
+                     warp_iterations={n: k2_lanes[n]["iters"] for n in k2.COUNTED_LOOPS},
                      ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2 ")}),
         # the bounce loop of shade_after_march (shade.py:363) in K2's
         # reflective instance; ms is a metal frame at 512^2 (16 passes),
@@ -690,6 +715,7 @@ def main():
                      max_abs_err_by_preset={m: v[0] for m, v in k2c_cases.items()},
                      samples=k2c_lanes["samples"],
                      active_lanes={n: k2c_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
+                     warp_iterations={n: k2c_lanes[n]["iters"] for n in k2.COUNTED_LOOPS},
                      accum_sha256=digest_m, argb_sha256=argb_digest_m,
                      ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2c")}),
     ]

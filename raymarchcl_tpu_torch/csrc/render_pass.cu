@@ -42,14 +42,34 @@
 // - Any aoIter. The AO probes' distances and sample caps come beside the
 //   pass times (one copy a frame) and are read through the read-only path.
 //
-// - The reflective presets (reflectIter > 0) are instances of their own
-//   (kReflect), so the bounce loop adds no code or registers to the `ao`
-//   instances. A thread runs its pixel's bounces in order and stops at the
-//   first that misses or hits a material with r0 < 0.001, as the plain
-//   version's frozen lanes do. Lighting is inlined at the primary hit and in
-//   the bounce loop: behind one __noinline__ call (one copy of its code, a
-//   64-byte stack frame) a metal frame took 54.1 ms against 41.5-41.9
-//   inlined, with no spill either way (PERF.md).
+// - K2c, the reflective presets (reflectIter > 0), are instances of their
+//   own (kReflect), so the bounce loop adds no code or registers to the
+//   `ao` instances. A thread runs its pixel's bounces in order and stops at
+//   the first that misses or hits a material with r0 < 0.001, as the plain
+//   version's frozen lanes do. Lighting (the AO probes, a shadow ray a
+//   light) is inlined at the primary hit and in the bounce loop: behind one
+//   __noinline__ call a metal frame took 54.1 ms against 41.5-41.9.
+//   Its AO, shadow and bounce sample loops run at 0.30, 0.27 and 0.31
+//   active lanes, yet neither filling lanes nor overlapping loads made it
+//   faster. Measured on a 512^2 metal frame and dropped (PERF.md; this loop
+//   took 39.5-41.8 ms in the same calls), each bit-equal to it: a warp's
+//   chains marched a lane each into a pool of shading points, their AO
+//   probes and shadow rays pooled over the warp as tasks, the combine a lane
+//   each in the reference's order. Lanes that take their next step or task
+//   whenever half of them idle lift the AO and shadow shares to 0.60-0.81
+//   and 0.40-0.53, but the shadow steps then start 17.8-26.3 M times (7.7 M
+//   here) at 0.12-0.18 of the lanes: 46.8-57.9 ms (and a pool in shared
+//   memory costs the L1 it shares: 96 KB a block unused took this loop to
+//   44.3 ms). A step of every pooled ray at a time waits for the longest
+//   step's samples: 64-71 ms. Each lane its share of the tasks with this
+//   loop's own marches: 78/79 registers and three blocks an SM, yet 0.75%
+//   slower over four calls (2-6% faster without the brick table), with a
+//   37 MiB pool. Loading the STOP words of the next 2, 4 or 8 samples of a
+//   brick at distance 0 together: 58-89 ms, the sample loops' shares down
+//   to 0.22-0.25. Every try that spent instructions in divergent code, on
+//   step set-ups for a few lanes or on samples not yet needed, lost more
+//   than it saved: over the brick table the issued instructions of the
+//   march loops, not load latency or idle lanes, look to be what bounds it.
 //
 // The counting build (never on the main path; `ao` and reflective) counts,
 // per loop, warp iterations and the active lanes in them. Measured slower

@@ -1,9 +1,11 @@
 """Where the device time of a main-path frame goes: a torch.profiler trace
 of whole frames with and without the brick table (gyroid 256^3, 512x512,
-16 spp, `ao`, orbit camera at theta=135: chip_smoke.py's main path), and
+16 spp, `ao` or the `--mat` preset, orbit camera at theta=135:
+chip_smoke.py's main path, or its reflective path with `--mat metal`), and
 K2's counting build on one frame.
 
     python raymarchcl_tpu_torch/scripts/profile_frame.py [--frames 3] [--root CHECKOUT]
+        [--mat ao|metal|metal2|orange-stripes]
 
 For each mode it prints the device's busy share of the traced frames, where
 the idle time falls (from the exported chrome trace: before the frame's
@@ -95,6 +97,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=3, help="traced frames per mode")
     ap.add_argument("--root", default=here, help="checkout whose package renders")
+    ap.add_argument("--mat", default="ao", help="material preset")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -117,7 +120,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     vol_np, res = api.default_volume(256, cache=False)
     vol = volume_from_numpy(vol_np, dev)
-    opts = render_options(width=512, height=512, iter=16, vres=list(res), mat="ao",
+    opts = render_options(width=512, height=512, iter=16, vres=list(res), mat=args.mat,
                           eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
     tables = make_mc_tables(16, seed=0, device=dev)
     bricks = build_accel(vol, res, opts.isoVal)

@@ -392,3 +392,54 @@ def test_k2c_cuda_fused_pack_bit_equal(cuda_device):
     k2.render_passes(vol, opts, tables, times, acc, bricks, argb)
     torch.cuda.synchronize()
     assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))
+
+
+K2C_OPTIONS = {
+    "aoIter16": ("metal", (40, 24), dict(aoIter=16)),
+    "4lights": ("metal", (40, 24), dict(
+        numLights=4,
+        lightPos=torch.tensor([[0, 2, 0, 0], [3, 0, 3, 0], [-2, 1, 2, 0], [1, 3, -1, 0]],
+                              dtype=torch.float32),
+        lightColor=torch.tensor([[28, 18, 8, 0], [16, 36, 56, 0], [10, 20, 30, 0],
+                                 [30, 10, 5, 0]], dtype=torch.float32))),
+    "reflectIter1": ("metal", (40, 24), dict(reflectIter=1)),
+    "reflectIter3": ("orange-stripes", (40, 24), dict(reflectIter=3)),
+    "reflectIter5": ("metal", (40, 24), dict(reflectIter=5)),  # more than any preset's 3
+    "aoAmp4": ("metal", (40, 24), dict(aoAmp=torch.tensor(4.0))),  # the AO stop fires
+    "ragged100x37": ("metal2", (100, 37), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2C_OPTIONS))
+def test_k2c_cuda_options_match_plain(cuda_device, case):
+    """K2c away from the presets' options (aoIter 16, 4 lights, 1, 3 and 5
+    bounces, an AO product that stops, a ragged frame): within the tolerance
+    of its plain version on >= 99.5% of pixels, and bit-equal with and
+    without the brick table."""
+    mat, size, changes = K2C_OPTIONS[case]
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, *size, 1, mat)
+    opts = opts.replace(**changes)
+    n = opts.num_pixels
+    acc = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device),
+                           bricks)
+    raw = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, raw)
+    want = k2.render_pass_plain(vol, opts.replace(time=times[0]), tables[0],
+                                torch.zeros((n, 3), device=cuda_device), bricks)
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_k2c_cuda_16_passes_bit_equal_single_passes(cuda_device):
+    """One K2c launch of 16 passes equals 16 one-pass launches bit for bit."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 16, "metal")
+    frame = k2.render_passes(vol, opts, tables, times,
+                             torch.zeros((opts.num_pixels, 3), device=cuda_device), bricks)
+    acc = torch.zeros((opts.num_pixels, 3), device=cuda_device)
+    for p in range(16):
+        k2.render_pass(vol, opts.replace(time=times[p]), tables[p], acc, bricks)
+    torch.cuda.synchronize()
+    assert torch.equal(frame, acc)
