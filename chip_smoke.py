@@ -24,21 +24,35 @@ raymarchcl_tpu_torch.scripts.bench_prims, with checks that E1's rounds,
 E3's probes, E4's reps and E5's trips cost time, their library yardsticks
 and the launch floor. K2's counting build gives the march samples of K2's
 and K2c's bounds and their loops' warp iterations, lanes and active-lane
-shares. The main path's and the metal frame's accum and image must keep
-their sha256 (DIGESTS). One line per phase; the second-to-last line is a
-JSON object with one entry per kernel, the last line the JSON result.
+shares. Then the paths of the library and CLI workflows: the trefoil
+mesh's volumes (models/mesh.py) held to the JAX package's digests, K2 and
+K2c vs plain on them and with depth of field, the `terrain-ao`,
+`heatmap-orange` and `scatter-metal` goldens; BASELINE configs 3 (mesh
+64^3, `ao`) and 4 (scatter 128^3, `metal`) at 512^2 and 16 spp through
+render_image; config 5 (1024^2, `metal`, dof 0.025, 100 spp) through
+io/checkpoint.render_checkpointed in chunks of 10, interrupted and resumed,
+and fully resumed (K1 alone), each bit-equal to one straight launch and
+held to docs/showcase-config5-100spp.png; api.test_anim (512^2, 2 spp, 3
+frames); and `python -m raymarchcl_tpu_torch render` and `info` in a
+subprocess. The main path's, the metal frame's and configs 3-5's accum and
+image must keep their sha256 (DIGESTS). One line per phase; the
+second-to-last line is a JSON object with one entry per kernel, the last
+line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -62,7 +76,26 @@ GOLDENS = {
                           theta=60),
     "gyroid-dof": dict(GOLDEN_CASE, width=48, height=32, mat="metal2", dof=0.05),
 }
+# the goldens of tests/test_goldens.py on other volumes (its `_volume`)
+VOLUME_GOLDENS = {
+    "terrain-ao": dict(GOLDEN_CASE, width=48, height=32, iter=1, vres=40, volume="terrain"),
+    "heatmap-orange": dict(GOLDEN_CASE, width=48, height=32, iter=1, vres=32,
+                           mat="orange-stripes", theta=45, volume="heatmap"),
+    "scatter-metal": dict(GOLDEN_CASE, width=48, height=32, iter=1, vres=32, mat="metal",
+                          volume="scatter"),
+}
 REFLECTIVE = ("metal", "metal2", "orange-stripes")
+TREFOIL = os.path.join(REPO, "assets", "trefoil.stl")
+# BASELINE configs 3 and 4's volumes (scripts/run_configs.py:77-81): occupied
+# voxels and sha256 as the JAX package's raymarchcl_tpu.models.mesh gives them
+MESH_VOLUMES = {
+    "voxelize_ks(64, 1)": (38673, "99eb9c1d21074f34c11c0e5ce50cbcc13462df34dcd5f4f108fea56db5fe41ce"),
+    "voxelize_scatter(128, seed=3)": (
+        114919, "98f4e0bf2b30656685bc0d1a2763f68b1c73ecf6a8a130cd9baf715e005f2fca"),
+}
+CAM = dict(eyepos=(135, 2.25, 0.35), targetpos=[0, -0.4, 0])  # the main path's orbit camera
+CAM3 = dict(eyepos=(120, 2.0, 0.5), targetpos=[0, 0, 0])  # config 3's (run_configs.py:89)
+SHOWCASE = os.path.join(REPO, "docs", "showcase-config5-100spp.png")
 # sha256 of the accum bytes and of the image of the main path's frame (`ao`)
 # and of the reflective path's (`metal`): a change of K1, K2 or K2c keeps
 # both frames bit-equal to their parent's
@@ -71,11 +104,26 @@ DIGESTS = {
            "fa6d675da75f37b7e5e0e8c84f26b888784eed444cfcb29cbbe96231af30a4dc"),
     "metal": ("d75cb27e04d9d1778d78171a21545321da539ee8794c7a52543710528ea17789",
               "23b5a9f4f8e72bf2897d0c6166fa29c9283a2b654d0863cef2fe151e01502aa8"),
+    # BASELINE configs 3 (mesh 64^3, ao) and 4 (scatter 128^3, metal) at
+    # 512^2, 16 spp, and config 5 (1024^2, metal, dof 0.025, 100 spp)
+    "config 3": ("e9b21466613f37801bbe9cff37e7b1470e6ef38903c287a53380b809cea8bf5f",
+                 "f5fe61792b1b0b1660e83bb0800841341b3d5a07bc972a5ed5ca444c16125509"),
+    "config 4": ("128aeef99e526fd2ce21b3036c58096229b605ffa4d65e5952612d4023e409c7",
+                 "15e4bdc1e59916c2fea39f1cb0fc72afe8dfe34904d61bdbba6999bb243ee10e"),
+    "config 5": ("185c13e37995a57fb8f36c5a363c520b369a6ee5247594a8670c200988790f43",
+                 "03ed5fca8d55058ac3d472d0c345db180185afc5f588a48b92fbbe344b87066b"),
 }
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def camera(cam):
+    """render_options' eyepos/targetpos of a camera (theta, dist, y; target)."""
+    from raymarchcl_tpu_torch.ops.camera import compute_eyepos
+
+    return dict(eyepos=compute_eyepos(*cam["eyepos"]), targetpos=cam["targetpos"])
 
 
 def require(cond, msg):
@@ -222,7 +270,8 @@ def main():
     sys.path.insert(0, REPO)
     from raymarchcl_tpu_torch import api
     from raymarchcl_tpu_torch.convert import volume_from_numpy
-    from raymarchcl_tpu_torch.io import imageio
+    from raymarchcl_tpu_torch.io import checkpoint, imageio
+    from raymarchcl_tpu_torch.models import generators, mesh
     from raymarchcl_tpu_torch.ops import accel as accel_mod
     from raymarchcl_tpu_torch.ops import march
     from raymarchcl_tpu_torch.ops import render as render_mod
@@ -235,6 +284,15 @@ def main():
     from raymarchcl_tpu_torch.scripts import bench_prims
 
     dev = torch.device("cuda", 0)
+
+    def counts():
+        """The launch counts of K1 alone, K2 (K2c included), K2c, and K2's packs."""
+        return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K2c": k2.REFLECTIVE_LAUNCHES,
+                "packs": k2.PACKS}
+
+    def zero_counts():
+        k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
+
     # -- 1. the card and the build ------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -276,11 +334,13 @@ def main():
         f"plain {k1_plain_ms:.4f} ms")
 
     # -- 3. K2 vs plain on the card ------------------------------------------
-    def k2_case(name, vres, seed, **kw):
-        vol_np, res = api.default_volume(vres)
+    def k2_case(name, vres, seed, volume=None, cam=CAM, table=False, **kw):
+        """K2 (or K2c) against its plain version on the gyroid at vres, or
+        on `volume` (vres^3), with the brick table if `table`."""
+        vol_np, res = api.default_volume(vres) if volume is None else (volume, (vres,) * 3)
         vol = volume_from_numpy(vol_np, dev)
-        opts = render_options(vres=list(res), eyepos=compute_eyepos(135, 2.25, 0.35),
-                              targetpos=[0, -0.4, 0], **kw)
+        opts = render_options(vres=list(res), **camera(cam), **kw)
+        bricks_c = accel_mod.build_accel(vol, res, opts.isoVal) if table else None
         tables = make_mc_tables(kw["iter"], seed=seed, device=dev)
         times = torch.arange(kw["iter"], dtype=torch.float32) * render_mod.TIME_STEP_INIT
         acc_k = torch.zeros((opts.num_pixels, 3), device=dev)
@@ -288,10 +348,10 @@ def main():
         plain_s = 0.0
         for p in range(kw["iter"]):
             o = opts.replace(time=times[p])
-            k2.render_pass(vol, o, tables[p], acc_k)
+            k2.render_pass(vol, o, tables[p], acc_k, bricks_c)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            acc_p = k2.render_pass_plain(vol, o, tables[p], acc_p)
+            acc_p = k2.render_pass_plain(vol, o, tables[p], acc_p, bricks_c)
             torch.cuda.synchronize()
             plain_s += time.perf_counter() - t0
         frac, exact, err = accum_agreement(acc_k, acc_p)
@@ -315,11 +375,57 @@ def main():
                               **k2c_small) for mat in REFLECTIVE}
     k2c_err = max(err for err, _ in k2c_cases.values())
 
+    # -- 3c. the mesh volumes of BASELINE configs 3 and 4, held to the JAX
+    # package's digests; K2 and K2c vs plain on them and with DOF, over the
+    # brick table
+    verts = mesh.read_stl(TREFOIL)
+    require(verts.shape == (18000, 3), f"trefoil.stl: {verts.shape[0]} unique vertices, not 18000")
+    mesh_vols = {}
+    for key, (n_occ, digest) in MESH_VOLUMES.items():
+        t0 = time.perf_counter()
+        v = (mesh.voxelize_ks(verts, 64, 1) if key.startswith("voxelize_ks")
+             else mesh.voxelize_scatter(verts, 128, seed=3))
+        dt = time.perf_counter() - t0
+        got = (int((v > 0).sum()), hashlib.sha256(v.tobytes()).hexdigest())
+        log(f"mesh volume {key} of trefoil.stl ({verts.shape[0]} unique vertices): {got[0]} "
+            f"occupied voxels, sha256 {got[1]}, {dt:.3f} s on the host")
+        require(got == (n_occ, digest), f"{key} differs from the JAX package's volume")
+        mesh_vols[key] = v
+    vol3, vol4 = mesh_vols["voxelize_ks(64, 1)"], mesh_vols["voxelize_scatter(128, seed=3)"]
+    new_cases = {
+        "config 3 mesh": k2_case("config 3 mesh 64^3 ao 64x48 2spp brick table", 64, 0,
+                                 volume=vol3, cam=CAM3, table=True, mat="ao", **k2c_small),
+        "config 4 scatter": k2_case("config 4 scatter 128^3 metal 64x48 2spp brick table", 128,
+                                    0, volume=vol4, table=True, mat="metal", **k2c_small),
+        "config 5 dof": k2_case("config 5 gyroid 256^3 metal dof 0.025 64x48 2spp brick table",
+                                256, 0, table=True, mat="metal", dof=0.025, **k2c_small),
+    }
+    k2_err = max(k2_err, new_cases["config 3 mesh"][0])
+    k2c_err = max(k2c_err, new_cases["config 4 scatter"][0], new_cases["config 5 dof"][0])
+
     # -- 4. the golden images on the card -------------------------------------
     from PIL import Image
 
-    for gname, case in GOLDENS.items():
-        argb = api.test_render(out_path=None, verbose=False, device="cuda", **case)
+    def golden_volume(kind, vres):
+        """tests/test_goldens.py's `_volume`, from the port's modules."""
+        if kind == "terrain":
+            return generators.make_terrain({"vres": [vres] * 3})
+        if kind == "heatmap":
+            yy, xx = np.mgrid[0:vres, 0:vres]
+            gray = ((np.sin(xx * 0.4) * np.cos(yy * 0.3) * 0.5 + 0.5) * 200).astype(np.uint8)
+            return mesh.make_heatmap(gray, amp=0.15, res=vres)
+        return mesh.voxelize_scatter(verts, vres, seed=3)
+
+    for gname, case in {**GOLDENS, **VOLUME_GOLDENS}.items():
+        case = dict(case)
+        kind = case.pop("volume", None)
+        if kind is None:
+            argb = api.test_render(out_path=None, verbose=False, device="cuda", **case)
+        else:
+            vres, theta = case.pop("vres"), case.pop("theta")
+            case.pop("dist")
+            argb, _ = api.render_frame(golden_volume(kind, vres), (vres,) * 3, device="cuda",
+                                       **camera(dict(CAM, eyepos=(theta, 2.25, 0.35))), **case)
         got = imageio.argb_to_rgba(argb).astype(np.int32)
         want = np.asarray(Image.open(os.path.join(GOLDEN_DIR, f"{gname}.png")).convert("RGBA"))
         want = want.astype(np.int32)
@@ -471,7 +577,7 @@ def main():
     # -- 7. the main path, with the brick table; then without it -------------
     render_mod.render_image(vol, opts, tables, accel=bricks)  # warm-up
     torch.cuda.synchronize()
-    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
+    zero_counts()
     frames, argb, accum = timed_frames(render_mod, vol, opts, tables, bricks)
     launches, packs = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
                        "K2c": k2.REFLECTIVE_LAUNCHES}, k2.PACKS
@@ -527,7 +633,7 @@ def main():
 
     # -- 7b. the reflective path: the reference's default still (`metal`) ----
     # once through api.test_render, then its frames and K2c on their own
-    k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     argb_m = api.test_render(width=512, height=512, iter=16, vres=256, mat="metal",
                              out_path=None, verbose=False, device="cuda")
@@ -647,6 +753,184 @@ def main():
     e4_rate = xt.numel() * 4 * prims.REPS_IN / (bench["E4"]["us"] * 1e-6)
     log(f"E1 rows staged {e1_rate / 1e12:.3f} TB/s; E4 shared memory read {e4_rate / 1e12:.3f} TB/s")
 
+    # -- 8b. BASELINE configs 3 and 4 at full size (512^2, 16 spp; the
+    # main path's MC tables, seed 0, as scripts/run_configs.py:32 takes them)
+    configs = {}
+    for key, vol_c, vres_c, mat_c, cam_c in (("config 3", vol3, 64, "ao", CAM3),
+                                             ("config 4", vol4, 128, "metal", CAM)):
+        v = volume_from_numpy(vol_c, dev)
+        o = render_options(width=512, height=512, iter=16, vres=vres_c, mat=mat_c, **camera(cam_c))
+        b = accel_mod.build_accel(v, o.voxelRes, o.isoVal)
+        render_mod.render_image(v, o, tables, accel=b)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        fr, argb_c, acc_c = timed_frames(render_mod, v, o, tables, b, n=3)
+        cnt = counts()
+        reflective = o.reflectIter > 0
+        require(cnt == {"K1": 0, "K2": 3, "K2c": 3 if reflective else 0, "packs": 3},
+                f"{key}: expected one {'K2c' if reflective else 'K2'} launch a frame, packing "
+                f"the image, over 3 frames, got {cnt}")
+        require(bool(torch.isfinite(acc_c).all()), f"{key} accum not finite")
+        require(np.array_equal(argb_c.reshape(-1), k1.tonemap_pack_plain(acc_c, o.gamma)
+                               .cpu().numpy().view(np.uint32)),
+                f"{key} image differs from K1's plain pack of its accum")
+        n_colors_c = len(np.unique(argb_c))
+        require(n_colors_c > 100, f"{key} image has only {n_colors_c} distinct colours")
+        k_ms = [bench_prims.kernel_ms(lambda: k2.render_passes(v, o, tables, times, acc_k, b,
+                                                               argb_k), 3) for _ in range(2)]
+        dg = (hashlib.sha256(acc_c.cpu().numpy().tobytes()).hexdigest(),
+              hashlib.sha256(argb_c.tobytes()).hexdigest())
+        lanes_c = k2.count_lanes(v, o, tables, times, torch.zeros_like(acc_c), b)
+        configs[key] = dict(frames_s=fr, frame_s=sorted(fr)[1], kernel_ms=k_ms, launches=cnt,
+                            accum_sha256=dg[0], argb_sha256=dg[1], colours=n_colors_c,
+                            samples=lanes_c["samples"],
+                            active_lanes={n: lanes_c[n]["active"] for n in k2.COUNTED_LOOPS},
+                            warp_iterations={n: lanes_c[n]["iters"] for n in k2.COUNTED_LOOPS})
+        log(f"{key} counting build, one frame: {lanes_c['samples']} march samples; active-lane "
+            "share " + lanes_line(lanes_c, k2.COUNTED_LOOPS))
+        log(f"{key} ({vres_c}^3 mesh volume, {mat_c}, 512^2, 16 spp, brick table) through "
+            f"render_image: frames {['%.4f' % f for f in fr]} s, median {sorted(fr)[1]:.4f} s; "
+            f"{'K2c' if reflective else 'K2'} per frame {k_ms[0]:.4f}, {k_ms[1]:.4f} ms; "
+            f"launches {cnt}; {n_colors_c} distinct colours; accum sha256 {dg[0]}; argb sha256 "
+            f"{dg[1]}")
+        require(dg == DIGESTS[key], f"{key} frame differs from its parent's: accum {dg[0]}, "
+                f"image {dg[1]}")
+
+    # -- 8c. BASELINE config 5 at full size through render_checkpointed -----
+    # (1024^2, metal, dof 0.025, 100 spp, seed 0, the 256^3 gyroid, default
+    # budgets): chunks of 10 passes, an interrupted run resumed, a full
+    # resume, each bit-equal to one straight launch of the 100 passes
+    opts5 = render_options(width=1024, height=1024, iter=100, vres=list(res), mat="metal",
+                           dof=0.025, **camera(CAM))
+    t0 = time.perf_counter()
+    tables5 = make_mc_tables(100, seed=0, device=dev)
+    tables5_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    argb5, acc5 = render_mod.render_image(vol, opts5, tables5, accel=bricks)
+    torch.cuda.synchronize()
+    straight5_s = time.perf_counter() - t0
+    cnt_straight5 = counts()
+    require(cnt_straight5 == {"K1": 0, "K2": 1, "K2c": 1, "packs": 1},
+            f"config 5 straight: expected one K2c launch, got {cnt_straight5}")
+
+    class Interrupt(Exception):
+        pass
+
+    def stop_after_3_chunks(done, total):
+        if done >= 30:
+            raise Interrupt
+
+    with tempfile.TemporaryDirectory() as td:
+        ck = os.path.join(td, "cfg5")
+        zero_counts()
+        t0 = time.perf_counter()
+        argb5c, acc5c = checkpoint.render_checkpointed(vol, opts5, tables5, ck, chunk=10,
+                                                       accel=bricks)
+        torch.cuda.synchronize()
+        chunked5_s = time.perf_counter() - t0
+        cnt_chunked5 = counts()
+        require(cnt_chunked5 == {"K1": 0, "K2": 10, "K2c": 10, "packs": 10},
+                f"config 5 chunked: expected 10 K2c launches, got {cnt_chunked5}")
+        require(np.array_equal(argb5c, argb5) and torch.equal(acc5c, acc5),
+                "config 5 through render_checkpointed differs from one straight launch")
+        ck_i = os.path.join(td, "cfg5-interrupted")
+        try:
+            checkpoint.render_checkpointed(vol, opts5, tables5, ck_i, chunk=10, accel=bricks,
+                                           progress=stop_after_3_chunks)
+            require(False, "the interrupting progress callback did not stop the render")
+        except Interrupt:
+            pass
+        require(checkpoint.load_accum(ck_i, opts5)[1]["passes_done"] == 30,
+                "the interrupted render's checkpoint does not hold 30 passes")
+        argb5i, acc5i = checkpoint.render_checkpointed(vol, opts5, tables5, ck_i, chunk=10,
+                                                       accel=bricks)
+        require(np.array_equal(argb5i, argb5) and torch.equal(acc5i, acc5),
+                "config 5 interrupted after 3 chunks and resumed differs from one straight launch")
+        zero_counts()
+        argb5r, acc5r = checkpoint.render_checkpointed(vol, opts5, tables5, ck, chunk=10,
+                                                       accel=bricks)
+        torch.cuda.synchronize()
+        cnt_resume5 = counts()
+        require(cnt_resume5 == {"K1": 1, "K2": 0, "K2c": 0, "packs": 0},
+                f"config 5 fully resumed: expected K1 alone once, got {cnt_resume5}")
+        require(np.array_equal(argb5r, argb5) and torch.equal(acc5r, acc5),
+                "config 5 fully resumed differs from one straight launch")
+        ck_bytes = os.path.getsize(ck + ".npz")
+    want5 = np.asarray(Image.open(SHOWCASE).convert("RGBA")).astype(np.int32)
+    diff5 = np.abs(imageio.argb_to_rgba(argb5).astype(np.int32)[..., :3] - want5[..., :3])
+    mad5, off8_5 = float(diff5.mean()), float((diff5 > 8).mean())
+    dg5 = (hashlib.sha256(acc5.cpu().numpy().tobytes()).hexdigest(),
+           hashlib.sha256(argb5.tobytes()).hexdigest())
+    # K2c alone on config 5's frame (a launch of ~1 s: CUDA events suffice)
+    times5 = torch.arange(100, dtype=torch.float32) * render_mod.TIME_STEP_INIT
+    acc5_k = torch.zeros_like(acc5)
+    argb5_k = torch.empty(opts5.num_pixels, dtype=torch.int32, device=dev)
+    k2c5_ms = cuda_ms(lambda: k2.render_passes(vol, opts5, tables5, times5, acc5_k, bricks,
+                                               argb5_k), 1)
+    configs["config 5"] = dict(straight_s=straight5_s, chunked_s=chunked5_s,
+                               s_per_spp=chunked5_s / 100, kernel_ms=k2c5_ms,
+                               checkpoint_overhead_s=chunked5_s - straight5_s,
+                               checkpoint_bytes=ck_bytes, tables_s=tables5_s,
+                               launches_chunked=cnt_chunked5, launches_resume=cnt_resume5,
+                               showcase_mad=mad5, showcase_frac_off8=off8_5,
+                               accum_sha256=dg5[0], argb_sha256=dg5[1])
+    log(f"config 5 (1024^2, metal, dof 0.025, 100 spp, gyroid 256^3, brick table): straight "
+        f"launch {straight5_s:.3f} s (K2c {k2c5_ms:.2f} ms with the pack); render_checkpointed "
+        f"chunk=10: {chunked5_s:.3f} s, {chunked5_s / 100:.5f} s/spp, launches {cnt_chunked5}, "
+        f"checkpoint overhead {chunked5_s - straight5_s:.3f} s ({ck_bytes} B a checkpoint); "
+        f"bit-equal to the straight launch, so is the run interrupted after 3 chunks and "
+        f"resumed; full resume launches {cnt_resume5}, bit-equal; MC tables {tables5_s:.2f} s "
+        f"on the host; accum sha256 {dg5[0]}; argb sha256 {dg5[1]}")
+    log(f"config 5 vs docs/showcase-config5-100spp.png (the JAX package's frame): mad "
+        f"{mad5:.6f} (< 0.15), frac_off8 {off8_5:.6%} (< 0.5%)")
+    require(dg5 == DIGESTS["config 5"], f"config 5 frame differs from its parent's: accum "
+            f"{dg5[0]}, image {dg5[1]}")
+    require(mad5 < 0.15 and off8_5 < 0.005, "config 5 misses the golden thresholds of "
+            "docs/showcase-config5-100spp.png")
+
+    # -- 8d. api.test_anim at 512^2, 2 spp, ao, 3 frames -------------------
+    out = io.StringIO()
+    zero_counts()
+    with tempfile.TemporaryDirectory() as td, contextlib.redirect_stdout(out):
+        paths = api.test_anim(512, 512, 2, 256, "ao", out_dir=td, frames=3, device="cuda")
+        frames_anim = [np.asarray(Image.open(p_).convert("RGB")) for p_ in paths]
+    cnt_anim = counts()
+    anim_s = [float(x) for x in re.findall(r"rendered frame #\d+ in ([0-9.]+)s", out.getvalue())]
+    require(cnt_anim == {"K1": 0, "K2": 3, "K2c": 0, "packs": 3},
+            f"test_anim: expected one K2 launch a frame, packing the image, got {cnt_anim}")
+    require(len(anim_s) == 3, f"test_anim printed {out.getvalue()!r}")
+    require(not np.array_equal(frames_anim[0], frames_anim[1])
+            and not np.array_equal(frames_anim[1], frames_anim[2]), "test_anim frames repeat")
+    t1 = 1 / 3
+    fresh, _ = api.render_frame(
+        vol_np, res, iter=2, device="cuda", width=512, height=512, mat="ao", fov=115.0,
+        times=torch.arange(2, dtype=torch.float32) * render_mod.TIME_STEP_ANIM,
+        targetpos=[0, -0.15, 0], eyepos=compute_eyepos(t1 * 350.0, 2.25, 0.44 + t1 * 0.01))
+    require(not np.array_equal(imageio.argb_to_rgba(fresh)[..., :3], frames_anim[1]),
+            "test_anim frame 1 equals a fresh render: the accum was not carried")
+    configs["test_anim"] = dict(frames_s=anim_s, launches=cnt_anim)
+    log(f"test_anim (512^2, 2 spp, ao, 3 frames, one accum carried): frames "
+        f"{['%.4f' % f for f in anim_s]} s (each with its PNG write); launches {cnt_anim}; frames "
+        f"differ, frame 1 differs from a fresh render of its camera")
+
+    # -- 8e. the CLI in a subprocess ---------------------------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    with tempfile.TemporaryDirectory() as td:
+        png = os.path.join(td, "cli.png")
+        cmds = {"render": ["render", "--mat", "ao", "--width", "256", "--height", "144",
+                           "--iter", "2", "--vres", "128", "-o", png], "info": ["info"]}
+        for name, argv in cmds.items():
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "raymarchcl_tpu_torch", *argv], cwd=REPO,
+                               env=env, capture_output=True, text=True, timeout=600)
+            require(r.returncode == 0, f"CLI {name} exited {r.returncode}: {r.stderr[-2000:]}")
+            log(f"CLI {name} ({time.perf_counter() - t0:.2f} s): "
+                + " | ".join(r.stdout.strip().splitlines()))
+        img = imageio.load_gray(png)
+        require(img.shape == (144, 256) and img.std() > 0, "CLI render: a flat or misshapen PNG")
+
     # -- 9. the kernels line ---------------------------------------------------
     # K1 on its own reads accum and writes the image; fused, it writes the
     # image from registers
@@ -680,12 +964,20 @@ def main():
     }
     log(f"E bounds count: E1 {e1_rows} of {prims.S} table rows, E2 {e2_elems} table "
         f"elements by depth, E3 {e3_words} of {k * lanes} row words, E5 {trips} trips")
+    path_counts = {
+        "main": dict(launches, packs=packs), "metal path": dict(launches_m, packs=packs_m),
+        "config 3": configs["config 3"]["launches"], "config 4": configs["config 4"]["launches"],
+        "config 5 straight": cnt_straight5, "config 5 chunked": cnt_chunked5,
+        "config 5 fully resumed": cnt_resume5, "test_anim": cnt_anim}
     kernels = [
         # the main path packs in K2's epilogue (`launches`: its packs); ms
         # and bound_ms are the kernel on its own, which render.pack_argb runs
         kernel_entry("K1 tonemap_pack", "raymarchcl_tpu_torch/csrc/tonemap.cu",
                      "raymarchcl_tpu/ops/kernels/tonemap_pallas.py:37", packs, k1_err,
-                     k1_ms, k1_plain_ms, k1_bound, None, launches_standalone=launches["K1"],
+                     k1_ms, k1_plain_ms, k1_bound, None, launches_standalone=cnt_resume5["K1"],
+                     launches_standalone_on="config 5 fully resumed (render.pack_argb)",
+                     launches_by_path={p_: {"fused": c["packs"], "alone": c["K1"]}
+                                       for p_, c in path_counts.items()},
                      fused_in="raymarchcl_tpu_torch/csrc/render_pass.cu", fused_ms=fused_ms,
                      bound_ms_fused=k1_fused_bound[0]),
         kernel_entry("K2 render_pass", "raymarchcl_tpu_torch/csrc/render_pass.cu",
@@ -699,6 +991,7 @@ def main():
                      plain_samples_per_pass_raw=plain["raw"]["samples"],
                      active_lanes={n: k2_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
                      warp_iterations={n: k2_lanes[n]["iters"] for n in k2.COUNTED_LOOPS},
+                     launches_by_path={p_: c["K2"] - c["K2c"] for p_, c in path_counts.items()},
                      ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2 ")}),
         # the bounce loop of shade_after_march (shade.py:363) in K2's
         # reflective instance; ms is a metal frame at 512^2 (16 passes),
@@ -717,6 +1010,7 @@ def main():
                      active_lanes={n: k2c_lanes[n]["active"] for n in k2.COUNTED_LOOPS},
                      warp_iterations={n: k2c_lanes[n]["iters"] for n in k2.COUNTED_LOOPS},
                      accum_sha256=digest_m, argb_sha256=argb_digest_m,
+                     launches_by_path={p_: c["K2c"] for p_, c in path_counts.items()},
                      ptxas={n: v for n, v in k2_regs.items() if n.startswith("K2c")}),
     ]
     srcs = {"E1": ("e1_row_fetch", 71), "E2": ("e2_sublane_gather", 107),
@@ -748,7 +1042,9 @@ def main():
     log(json.dumps({"kernels": kernels, "launch_floor_ms": bench["floor"]["us"] / 1e3,
                     "frame_s": frame_s, "frame_raw_s": frame_raw_s, "frame_metal_s": frame_m_s,
                     "busy_untraced": busy, "accum_sha256": digest, "argb_sha256": argb_digest,
-                    "accel_build_s": t_accel, "card": card}))
+                    "accel_build_s": t_accel, "configs": configs,
+                    "new_inputs": {k: {"max_abs_err": v[0], "plain_ms": v[1]}
+                                   for k, v in new_cases.items()}, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -2,9 +2,12 @@
 raymarching renderer with the capabilities of thi-ng/raymarchcl.
 
 Layers (module names mirror raymarchcl_tpu):
-  api             default_volume / render_frame / test_render, with `device=`
-  scene/data      options + materials presets, models/ volumes, io/ formats,
-                  convert (numpy state in)
+  api             default_volume / render_frame / test_render / test_anim,
+                  with `device=`; __main__ (the CLI), compat (render from
+                  TRenderOpts blobs), runtime (devices, the kernel build log)
+  scene/data      options + materials presets, options_codec, models/
+                  volumes (gyroid, terrain, STL meshes, heatmaps), io/
+                  formats and checkpoints, convert (numpy state in)
   ops             plain PyTorch renderer: sampling, camera, march, shade, render
   ops/kernels     hand-written CUDA kernels (csrc/) with their plain versions:
                   K2 render_pass (one spp pass), K1 tonemap (pack)
@@ -13,7 +16,7 @@ Importing the package imports neither jax nor raymarchcl_tpu, and builds no
 kernel: ops/kernels/build.py compiles csrc/ with nvcc on first CUDA use.
 """
 
-from .api import default_volume, render_frame, test_render
+from .api import default_volume, render_frame, test_anim, test_render
 from .materials import PRESETS, get_preset
 from .options import RenderOpts, render_options
 
@@ -23,6 +26,7 @@ __all__ = [
     "default_volume",
     "render_frame",
     "test_render",
+    "test_anim",
     "render_options",
     "RenderOpts",
     "PRESETS",

@@ -60,3 +60,28 @@ def tables_from_numpy(tables, device="cpu") -> torch.Tensor:
     if arr.ndim not in (2, 3) or arr.shape[-1] != 4:
         raise ValueError(f"MC tables must be (T, 4) or (P, T, 4), got {arr.shape}")
     return torch.from_numpy(arr.copy()).to(device)
+
+
+def volume_on(volume, device) -> torch.Tensor:
+    """A flat uint8 volume (numpy array or tensor) as a contiguous tensor
+    on `device`."""
+    if isinstance(volume, torch.Tensor):
+        return volume.to(device=device, dtype=torch.uint8).reshape(-1).contiguous()
+    return volume_from_numpy(volume, device)
+
+
+def tables_on(tables, device) -> torch.Tensor:
+    """MC tables (numpy array or tensor) as a contiguous float32 tensor on
+    `device` whose storage starts 16-byte aligned (K2 reads float4s)."""
+    if not isinstance(tables, torch.Tensor):
+        return tables_from_numpy(tables, device)
+    t = tables.detach().to(device=device, dtype=torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def accum_on(accum, device) -> torch.Tensor:
+    """An (N, 3) accumulation (numpy array or tensor) as a contiguous
+    float32 tensor on `device`."""
+    if not isinstance(accum, torch.Tensor):
+        accum = torch.from_numpy(np.array(accum, dtype=np.float32))
+    return accum.detach().to(device=device, dtype=torch.float32).contiguous()

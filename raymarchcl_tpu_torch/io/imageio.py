@@ -1,4 +1,5 @@
-"""PNG image output (the reference's piksel dependency, core.clj:172-178)."""
+"""PNG image I/O (the reference's piksel dependency, core.clj:172-178 /
+meshvoxel.clj:73-75)."""
 
 from __future__ import annotations
 
@@ -19,3 +20,13 @@ def save_png(argb: np.ndarray, path: str) -> None:
     from PIL import Image
 
     Image.fromarray(argb_to_rgba(argb), mode="RGBA").save(path)
+
+
+def load_gray(path: str) -> np.ndarray:
+    """An image's low byte as (H, W) uint8: what the heatmap generator
+    consumes (meshvoxel.clj:79 `(bit-and pixel 255)`, the blue channel of
+    ARGB)."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(path).convert("RGBA"))
+    return img[..., 2].copy()

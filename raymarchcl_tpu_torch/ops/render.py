@@ -21,8 +21,10 @@ from .kernels import tonemap as k_tonemap
 from .kernels.render_pass import render_pass, render_passes  # noqa: F401  (blend in place)
 from .kernels.tonemap import tonemap  # noqa: F401  (re-export)
 
-# Per-pass time step of the still-image path (core.clj:105).
+# Per-pass time step of the still-image path (core.clj:105) and of the
+# animation's update path (core.clj:116).
 TIME_STEP_INIT = 0.333
+TIME_STEP_ANIM = 0.3333
 
 
 def render_accum(vol, opts, mc_tables, times, accum, accel=None):

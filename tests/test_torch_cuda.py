@@ -6,12 +6,15 @@ on a machine with a GPU and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from raymarchcl_tpu_torch.models import generators
-from raymarchcl_tpu_torch.ops import accel, sampling
+from raymarchcl_tpu_torch.io import checkpoint
+from raymarchcl_tpu_torch.models import generators, mesh
+from raymarchcl_tpu_torch.ops import accel, render, sampling
 from raymarchcl_tpu_torch.ops.camera import compute_eyepos
 from raymarchcl_tpu_torch.ops.kernels import prims
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
@@ -443,3 +446,86 @@ def test_k2c_cuda_16_passes_bit_equal_single_passes(cuda_device):
         k2.render_pass(vol, opts.replace(time=times[p]), tables[p], acc, bricks)
     torch.cuda.synchronize()
     assert torch.equal(frame, acc)
+
+
+TREFOIL = os.path.join(os.path.dirname(__file__), "..", "assets", "trefoil.stl")
+MESH_CASES = {  # BASELINE configs 3 and 4's volumes (scripts/run_configs.py:70-98)
+    "ks64-ao": ("ks", 64, "ao", dict(eyepos=compute_eyepos(120, 2.0, 0.5), targetpos=[0, 0, 0])),
+    "scatter128-metal": ("scatter", 128, "metal", dict(eyepos=compute_eyepos(135, 2.25, 0.35),
+                                                       targetpos=[0, -0.4, 0])),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_k2_cuda_mesh_volume_matches_plain(cuda_device, case):
+    """K2 and K2c over a voxelized mesh (a sparse volume): bit-equal with
+    and without the brick table, within the tolerance of the plain version
+    on >= 99.5% of pixels."""
+    kind, res, mat, cam = MESH_CASES[case]
+    verts = mesh.read_stl(TREFOIL)
+    vol_np = mesh.voxelize_ks(verts, res, 1) if kind == "ks" else mesh.voxelize_scatter(
+        verts, res, seed=3)
+    opts = render_options(width=48, height=32, vres=res, iter=2, mat=mat, **cam)
+    vol = torch.from_numpy(vol_np).to(cuda_device)
+    bricks = accel.build_accel(vol, opts.voxelRes, opts.isoVal)
+    tables = sampling.make_mc_tables(2, seed=0, device=cuda_device)
+    times = torch.arange(2, dtype=torch.float32) * 0.333
+    n = opts.num_pixels
+    acc = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device),
+                           bricks)
+    raw = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, raw)
+    want = torch.zeros((n, 3), device=cuda_device)
+    for p in range(2):
+        want = k2.render_pass_plain(vol, opts.replace(time=times[p]), tables[p], want, bricks)
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+
+
+@pytest.mark.cuda
+def test_k2c_cuda_dof_matches_plain(cuda_device):
+    """K2c with depth of field at config 5's 0.025 (the eye jitters per
+    pass): within the tolerance of its plain version, and bit-equal with
+    and without the brick table."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 48, 32, 2, "metal")
+    opts = opts.replace(dof=0.025)
+    n = opts.num_pixels
+    acc = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device),
+                           bricks)
+    raw = k2.render_passes(vol, opts, tables, times, torch.zeros((n, 3), device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(acc, raw)
+    want = torch.zeros((n, 3), device=cuda_device)
+    for p in range(2):
+        want = k2.render_pass_plain(vol, opts.replace(time=times[p]), tables[p], want, bricks)
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+    assert not torch.equal(acc, k2.render_passes(vol, opts.replace(dof=0.001), tables, times,
+                                                  torch.zeros((n, 3), device=cuda_device),
+                                                  bricks))
+
+
+@pytest.mark.cuda
+def test_checkpointed_cuda_chunks_and_full_resume(cuda_device, tmp_path):
+    """render_checkpointed on the card: chunks of 2 of 5 passes (one K2c
+    launch each) are bit-equal to one straight launch; a fully resumed call
+    launches K1 once and K2 never, with the same image."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 64, 48, 5, "metal")
+    opts = opts.replace(dof=0.025)
+    argb, acc = render.render_image(vol, opts, tables, accel=bricks)
+    before = (k1.LAUNCHES, k2.LAUNCHES, k2.REFLECTIVE_LAUNCHES)
+    argb_c, acc_c = checkpoint.render_checkpointed(vol, opts, tables, tmp_path / "ck", chunk=2,
+                                                   accel=bricks)
+    assert (k1.LAUNCHES, k2.LAUNCHES, k2.REFLECTIVE_LAUNCHES) == (
+        before[0], before[1] + 3, before[2] + 3)
+    assert acc_c.device.type == "cuda"
+    np.testing.assert_array_equal(argb_c, argb)
+    assert torch.equal(acc_c, acc)
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    argb_r, acc_r = checkpoint.render_checkpointed(vol, opts, tables, tmp_path / "ck", chunk=2,
+                                                   accel=bricks)
+    assert (k1.LAUNCHES, k2.LAUNCHES) == (before[0] + 1, before[1])
+    np.testing.assert_array_equal(argb_r, argb)
+    assert torch.equal(acc_r, acc)
