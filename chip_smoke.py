@@ -7,8 +7,8 @@ Builds the CUDA kernels from raymarchcl_tpu_torch/csrc with nvcc (and
 reports each K2 instance's registers, spills and shared memory), checks
 each against its plain PyTorch version on the card (K2 also at aoIter 16,
 and its reflective instance K2c for `metal`, `metal2` and `orange-stripes`
-at 64x48 and for `metal` on the first pass of the reflective path's 512x512
-frame), checks the `gyroid-ao`, `gyroid-metal`, `gyroid-orange` and
+at 64x48; each on the first pass of the 512x512 frames of the reflective
+path and of BASELINE configs 3 and 4), checks the `gyroid-ao`, `gyroid-metal`, `gyroid-orange` and
 `gyroid-dof` golden images and the brick table of the 256^3 gyroid, shows
 that K2 and K2c over the brick table are bit-equal to themselves without
 it, that one launch of a frame's 16 passes is bit-equal to 16 one-pass
@@ -293,6 +293,28 @@ def main():
     def zero_counts():
         k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
 
+    def first_pass_vs_plain(name, v, o, table, b):
+        """K2 (or K2c) against its plain version on the first pass of a
+        full-size frame, from a zero accum. Returns ((share within TOL,
+        share bit-equal, max abs diff), plain ms, march samples the plain
+        version read)."""
+        kname = "K2c" if o.reflectIter > 0 else "K2"
+        acc_kern = k2.render_pass(v, o, table, torch.zeros((o.num_pixels, 3), device=dev), b)
+        march.SAMPLES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc_pl = k2.render_pass_plain(v, o, table, torch.zeros((o.num_pixels, 3), device=dev), b)
+        torch.cuda.synchronize()
+        ms, samples = (time.perf_counter() - t0) * 1e3, march.SAMPLES
+        agree = accum_agreement(acc_kern, acc_pl)
+        log(f"{kname} vs plain [{name}]: {agree[0]:.6f} of {o.num_pixels} px within "
+            f"rtol=atol=5e-3 ({1 - agree[0]:.6f} differ), {agree[1]:.6f} bit-equal, max abs "
+            f"diff {agree[2]:.6g}; plain {ms:.1f} ms, {samples} march samples read")
+        require(bool(torch.isfinite(acc_kern).all()), f"{kname} accum [{name}] not finite")
+        require(agree[0] >= MIN_PIXELS_OK,
+                f"{kname} [{name}] agrees on {agree[0]:.4%} < 99.5% of pixels")
+        return agree, ms, samples
+
     # -- 1. the card and the build ------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -524,22 +546,9 @@ def main():
     # K2c vs its plain version on the main path's own inputs: the first
     # pass at 512^2 over the 256^3 volume and its table (the 16-pass check
     # below ties the other passes to one-pass launches)
-    om0 = opts_m.replace(time=times[0])
-    acc_kc = k2.render_pass(vol, om0, tables[0], zero.clone(), bricks)
-    march.SAMPLES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acc_pc = k2.render_pass_plain(vol, om0, tables[0], zero.clone(), bricks)
-    torch.cuda.synchronize()
-    k2c_plain512_ms, k2c_plain512_samples = (time.perf_counter() - t0) * 1e3, march.SAMPLES
-    k2c_512 = accum_agreement(acc_kc, acc_pc)
-    log(f"K2c vs plain [metal 512^2 1 pass vres256 brick table, the main path's inputs]: "
-        f"{k2c_512[0]:.6f} of {opts_m.num_pixels} px within rtol=atol=5e-3 "
-        f"({1 - k2c_512[0]:.6f} differ), {k2c_512[1]:.6f} bit-equal, max abs diff "
-        f"{k2c_512[2]:.6g}; plain {k2c_plain512_ms:.1f} ms, {k2c_plain512_samples} march "
-        "samples read")
-    require(bool(torch.isfinite(acc_kc).all()), "K2c accum at 512^2 not finite")
-    require(k2c_512[0] >= MIN_PIXELS_OK, f"K2c at 512^2 agrees on {k2c_512[0]:.4%} < 99.5%")
+    k2c_512, k2c_plain512_ms, k2c_plain512_samples = first_pass_vs_plain(
+        "metal 512^2 1 pass vres256 brick table, the main path's inputs", vol,
+        opts_m.replace(time=times[0]), tables[0], bricks)
     k2c_err = max(k2c_err, k2c_512[2])
     a_frame_m = k2.render_passes(vol, opts_m, tables, times, zero.clone(), bricks)
     a_single = zero.clone()
@@ -778,12 +787,23 @@ def main():
         require(n_colors_c > 100, f"{key} image has only {n_colors_c} distinct colours")
         k_ms = [bench_prims.kernel_ms(lambda: k2.render_passes(v, o, tables, times, acc_k, b,
                                                                argb_k), 3) for _ in range(2)]
+        # the kernel against its plain version on this config's own inputs:
+        # the first pass of the 512^2 frame over the mesh volume and its table
+        agree_c, plain_c_ms, plain_c_samples = first_pass_vs_plain(
+            f"{key} {vres_c}^3 {mat_c} 512^2 1 pass brick table, the config's inputs", v,
+            o.replace(time=times[0]), tables[0], b)
+        if reflective:
+            k2c_err = max(k2c_err, agree_c[2])
+        else:
+            k2_err = max(k2_err, agree_c[2])
         dg = (hashlib.sha256(acc_c.cpu().numpy().tobytes()).hexdigest(),
               hashlib.sha256(argb_c.tobytes()).hexdigest())
         lanes_c = k2.count_lanes(v, o, tables, times, torch.zeros_like(acc_c), b)
         configs[key] = dict(frames_s=fr, frame_s=sorted(fr)[1], kernel_ms=k_ms, launches=cnt,
                             accum_sha256=dg[0], argb_sha256=dg[1], colours=n_colors_c,
-                            samples=lanes_c["samples"],
+                            samples=lanes_c["samples"], agree_512_pass=agree_c[0],
+                            max_abs_err_512_pass=agree_c[2], plain_ms_512_pass=plain_c_ms,
+                            plain_samples_512_pass=plain_c_samples,
                             active_lanes={n: lanes_c[n]["active"] for n in k2.COUNTED_LOOPS},
                             warp_iterations={n: lanes_c[n]["iters"] for n in k2.COUNTED_LOOPS})
         log(f"{key} counting build, one frame: {lanes_c['samples']} march samples; active-lane "

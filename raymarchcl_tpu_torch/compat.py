@@ -12,9 +12,9 @@ from __future__ import annotations
 import torch
 
 from . import options_codec as codec
+from .api import build_accel_for
 from .convert import accum_on, tables_on, volume_on
 from .ops import render as render_mod
-from .ops.accel import build_accel
 from .options import DYNAMIC_FIELDS, MC_TABLE_LENGTH, RenderOpts, f32
 from .runtime import check_device
 
@@ -66,7 +66,7 @@ def render_from_blobs(opt_blobs, volume, mc_tables, accum=None, accel=True, devi
     times = torch.stack([o.time for o in opts_list]).reshape(-1)
     tables = tables_on(mc_tables, dev)
     vol = volume_on(volume, dev)
-    acc = build_accel(vol, opts0.voxelRes, opts0.isoVal) if accel else None
+    acc = build_accel_for(vol, opts0) if accel else None
     if accum is not None:
         accum = accum_on(accum, dev)
     return render_mod.render_image(vol, opts0, tables, times=times, accum=accum, accel=acc)

@@ -101,11 +101,14 @@ def test_opts_from_blob_defaults_table_length():
 
 
 VRES = [24, 24, 48]
-FRAMES = {  # ao at 24x16, 2 passes; a reflective preset at 10x8, 1 pass
+# ao at 24x16, 2 passes; metal at 10x8, 1 pass, with one bounce: the JAX
+# package unrolls its bounce loop, so each bounce adds to its compile time
+# (its three are held at 10x8 in test_torch_reflect_frame.py)
+FRAMES = {
     "ao": dict(width=24, height=16, iter=2, mat="ao", maxIter=24, maxVoxelIter=48,
                shadowIter=24),
-    "metal": dict(width=10, height=8, iter=1, mat="metal", maxIter=24, maxVoxelIter=48,
-                  shadowIter=24),
+    "metal": dict(width=10, height=8, iter=1, mat="metal", reflectIter=1, maxIter=24,
+                  maxVoxelIter=48, shadowIter=24),
 }
 
 
@@ -130,6 +133,7 @@ def jax_blob_frame(request, vol):
 @pytest.mark.parametrize("accel", [True, False])
 def test_render_from_blobs_matches_jax(vol, jax_blob_frame, accel):
     f = jax_blob_frame
+    assert t_compat.opts_from_blob(f["blobs"][0]).reflectIter == f["kw"].get("reflectIter", 0)
     argb, acc = t_compat.render_from_blobs(f["blobs"], vol, f["tables"], accel=accel,
                                            device="cpu")
     acc = acc.numpy()
