@@ -34,7 +34,15 @@ io/checkpoint.render_checkpointed in chunks of 10, interrupted and resumed,
 and fully resumed (K1 alone), each bit-equal to one straight launch and
 held to docs/showcase-config5-100spp.png; api.test_anim (512^2, 2 spp, 3
 frames); and `python -m raymarchcl_tpu_torch render` and `info` in a
-subprocess. The main path's, the metal frame's and configs 3-5's accum and
+subprocess. Then the multi-device paths (parallel/tiling.py), all on
+cuda:0: K2 and K2c over a ragged pixel range against their plain versions
+and against a whole-frame launch (its rows bit-equal), the main path tiled over 4 x cuda:0 (its digests the untiled frame's), the
+metal frame's first pass tiled (bit-equal to untiled), the main path's
+passes sharded 4 ways and over a 2x2 mesh (K1 alone packs; within
+rtol=2e-5, atol=1e-6 of one launch), two processes in a gloo group through
+raymarchcl_tpu_torch.scripts.render_tiled (both ranks hold the untiled
+digests), utils' measured_hit_fraction and raymarch_occupancy, and
+scripts/gallery.py at its defaults. The main path's, the metal frame's and configs 3-5's accum and
 image must keep their sha256 (DIGESTS). One line per phase; the
 second-to-last line is a JSON object with one entry per kernel, the last
 line the JSON result.
@@ -50,6 +58,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -951,6 +960,201 @@ def main():
         img = imageio.load_gray(png)
         require(img.shape == (144, 256) and img.std() > 0, "CLI render: a flat or misshapen PNG")
 
+    # -- 8f. the multi-device paths (parallel/tiling.py), all on cuda:0 ------
+    from raymarchcl_tpu_torch.ops.camera import camera_ray_lookat
+    from raymarchcl_tpu_torch.ops.sampling import init_render_state
+    from raymarchcl_tpu_torch.parallel import tiling
+    from raymarchcl_tpu_torch.scripts import gallery
+    from raymarchcl_tpu_torch.utils import metrics, stats
+
+    t_phase = time.perf_counter()
+    multi = {}
+    # K2 and K2c over a ragged pixel range against their plain versions: the
+    # last of 3 tiles of a 100x37 frame starts mid-row and ends in pad rows,
+    # which render pixel N-1 again
+    for mat_r, n_p in (("ao", 2), ("metal", 1)):
+        o = render_options(width=100, height=37, iter=n_p, **dict(main_kw, mat=mat_r))
+        blk = -(-o.num_pixels // 3)
+        lo, real = 2 * blk, o.num_pixels - 2 * blk
+        a_k = torch.zeros((blk, 3), device=dev)
+        g_k = torch.zeros(blk, dtype=torch.int32, device=dev)
+        k2.render_passes(vol, o, tables[:n_p], times[:n_p], a_k, bricks, g_k, pix_lo=lo,
+                         pix_count=blk)
+        a_p = torch.zeros((blk, 3), device=dev)
+        t0 = time.perf_counter()
+        for p in range(n_p):
+            a_p = k2.render_pass_plain(vol, o.replace(time=times[p]), tables[p], a_p, bricks,
+                                       pix_lo=lo)
+        torch.cuda.synchronize()
+        plain_r_ms = (time.perf_counter() - t0) * 1e3
+        frac, exact, err = accum_agreement(a_k, a_p)
+        kname = "K2c" if o.reflectIter > 0 else "K2"
+        # the range's worst pixel against the whole-frame launch: the range's
+        # rows equal the whole frame's bit for bit, so its error is the
+        # whole-frame launch's own at that pixel (plain: that pixel alone)
+        a_w = k2.render_passes(vol, o, tables[:n_p], times[:n_p],
+                               torch.zeros((o.num_pixels, 3), device=dev), bricks)
+        require(torch.equal(a_k[:real], a_w[lo:]),
+                f"{kname} pixel range: its rows differ from the whole-frame launch's")
+        pid = min(lo + int((a_k - a_p).abs().amax(dim=1).argmax()), o.num_pixels - 1)
+        a_1 = torch.zeros((1, 3), device=dev)
+        for p in range(n_p):
+            a_1 = k2.render_pass_plain(vol, o.replace(time=times[p]), tables[p], a_1, bricks,
+                                       pix_lo=pid)
+        err_w = float((a_w[pid] - a_1[0]).abs().max())
+        log(f"{kname} pixel range vs plain [{mat_r} 100x37 {n_p} pass(es), tile 3 of 3: rows "
+            f"{blk} from pixel {lo} (x {lo % o.width} of row {lo // o.width}), {blk - real} pad "
+            f"rows]: {frac:.6f} within rtol=atol=5e-3, {exact:.6f} bit-equal, max abs diff "
+            f"{err:.6g}; plain {plain_r_ms:.1f} ms; rows bit-equal to the whole-frame launch's; "
+            f"worst pixel {pid} (x {pid % o.width}, y {pid // o.width}): range {err:.6g}, "
+            f"whole-frame launch vs that pixel's plain {err_w:.6g}")
+        require(frac >= MIN_PIXELS_OK, f"{kname} pixel range agrees on {frac:.4%} < 99.5%")
+        require(blk > real and torch.equal(a_k[real:], a_k[real - 1:real].expand(blk - real, 3)),
+                f"{kname} pixel range: the pad rows differ from pixel N-1's row")
+        require(torch.equal(g_k, k1.tonemap_pack_plain(a_k, o.gamma)),
+                f"{kname} pixel range: the packed rows differ from K1's plain pack")
+        if o.reflectIter > 0:
+            k2c_err = max(k2c_err, err)
+        else:
+            k2_err = max(k2_err, err)
+        multi[f"range_{mat_r}"] = dict(agree=frac, max_abs_err=err, plain_ms=plain_r_ms)
+
+    def frames_of(fn, n=3):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            res_ = fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out, res_
+
+    def sha(a):
+        return hashlib.sha256((a.cpu().numpy() if torch.is_tensor(a) else a).tobytes()).hexdigest()
+
+    # the main path over 4 tiles of cuda:0: its digests are the untiled frame's
+    mesh4 = tiling.make_mesh([dev] * 4)
+    tiling.render_image_tiled(vol, opts, tables, mesh=mesh4, accel=bricks)  # warm-up
+    zero_counts()
+    fr_t, (argb_t, acc_t) = frames_of(
+        lambda: tiling.render_image_tiled(vol, opts, tables, mesh=mesh4, accel=bricks))
+    cnt_tiled = counts()
+    require(cnt_tiled == {"K1": 0, "K2": 12, "K2c": 0, "packs": 12},
+            f"tiled main path: expected 4 packing K2 launches a frame, got {cnt_tiled}")
+    require((sha(acc_t), sha(argb_t)) == DIGESTS["ao"],
+            f"tiled main path differs from the untiled frame: {sha(acc_t)}, {sha(argb_t)}")
+    t_blk = n_px // 4
+
+    def tile_launch(t):
+        k2.render_passes(vol, opts, tables, times, acc_k[t * t_blk:(t + 1) * t_blk], bricks,
+                         argb_k[t * t_blk:(t + 1) * t_blk], pix_lo=t * t_blk, pix_count=t_blk)
+
+    k2_tiles_ms = bench_prims.kernel_ms(lambda: [tile_launch(t) for t in range(4)], 4)
+    # each row band alone: on a card of its own, a tiled frame waits for the slowest
+    k2_tile_ms = [bench_prims.kernel_ms(lambda t=t: tile_launch(t), 4) for t in range(4)]
+    log(f"main path tiled over 4 x cuda:0 (render_image_tiled): frames "
+        f"{['%.4f' % f for f in fr_t]} s, median {sorted(fr_t)[1]:.4f} s (untiled {frame_s:.4f});"
+        f" launches {cnt_tiled}; K2's 4 tile launches {k2_tiles_ms:.4f} ms a frame (one launch "
+        f"{k2_pack_ms:.4f}; each tile alone {['%.4f' % m for m in k2_tile_ms]} ms); accum and "
+        f"argb sha256 equal the untiled frame's")
+    # the metal frame's first pass, tiled the same way
+    argb_m1, acc_m1 = render_mod.render_image(vol, opts_m, tables[:1], times[:1], accel=bricks)
+    zero_counts()
+    argb_mt, acc_mt = tiling.render_image_tiled(vol, opts_m, tables[:1], times[:1], mesh=mesh4,
+                                                accel=bricks)
+    cnt_mt = counts()
+    require(np.array_equal(argb_mt, argb_m1) and torch.equal(acc_mt, acc_m1),
+            "tiled metal first pass differs from the untiled one")
+    log(f"metal first pass at 512^2 tiled over 4 x cuda:0: bit-equal to untiled; launches "
+        f"{cnt_mt}")
+    # the main path's passes sharded 4 ways, and over a 2x2 (passes, tiles) mesh
+    for key, mesh_p, fn_p in (("spp 4", mesh4, tiling.render_image_spp_sharded),
+                              ("2d 2x2", tiling.make_mesh2d(2, 2, [dev] * 4),
+                               tiling.render_image_2d)):
+        fn_p(vol, opts, tables, mesh=mesh_p, accel=bricks)  # warm-up
+        zero_counts()
+        fr_p, (argb_p, acc_p) = frames_of(lambda: fn_p(vol, opts, tables, mesh=mesh_p,
+                                                       accel=bricks))
+        cnt_p = counts()
+        require(cnt_p == {"K1": 3, "K2": 12, "K2c": 0, "packs": 0},
+                f"{key}: expected 4 K2 launches and K1 alone a frame, got {cnt_p}")
+        close = bool(torch.allclose(acc_p, accum, rtol=2e-5, atol=1e-6))
+        err_p = float((acc_p - accum).abs().max())
+        flips = float((argb_p != argb).mean())
+        log(f"main path {key} over cuda:0 ({fn_p.__name__}): frames "
+            f"{['%.4f' % f for f in fr_p]} s, median {sorted(fr_p)[1]:.4f} s; launches {cnt_p}; "
+            f"accum within rtol=2e-5, atol=1e-6 of one launch: {close} (max abs diff "
+            f"{err_p:.3g}); packed pixels differing {flips:.6f}")
+        require(close and flips < 0.01, f"{key}: accum or image off the one-launch frame")
+        multi[key] = dict(frames_s=fr_p, launches=cnt_p, max_abs_err=err_p, argb_differ=flips)
+    # two processes in a gloo group, each rendering its tile on cuda:0
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env2 = dict(env, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "raymarchcl_tpu_torch.scripts.render_tiled",
+                               "--backend", "gloo"], cwd=REPO, env=dict(env2, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [proc.communicate(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    two_s = time.perf_counter() - t0
+    for proc, (out, err_txt) in zip(procs, outs):
+        require(proc.returncode == 0,
+                f"render_tiled rank exited {proc.returncode}: {err_txt[-2000:]}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    for r_ in ranks:
+        require((r_["accum_sha256"], r_["argb_sha256"]) == DIGESTS["ao"] and r_["world"] == 2
+                and r_["initialize"] == [True, False],
+                f"two-process tiled main path: rank {r_['rank']} got {r_}")
+    log(f"two processes (gloo, each rank on cuda:0) render_tiled of the main path "
+        f"(512^2, 16 spp): {two_s:.2f} s of processes, render_image_tiled "
+        f"{[round(r_['seconds'], 4) for r_ in ranks]} s; both ranks hold the untiled frame's "
+        f"accum and argb sha256")
+    multi["two_processes"] = dict(process_s=two_s, render_s=[r_["seconds"] for r_ in ranks])
+    # diagnostics of utils/: the hit fraction of the main path, the occupancy
+    # of a 128^2 primary pass (the plain march on CUDA tensors)
+    t0 = time.perf_counter()
+    hit_frac = metrics.measured_hit_fraction(vol, opts, tables[0], bricks)
+    torch.cuda.synchronize()
+    hit_s = time.perf_counter() - t0
+    require(0.0 < hit_frac <= 1.0, f"measured_hit_fraction {hit_frac}")
+    o128 = render_options(width=128, height=128, iter=1, **main_kw)
+    st128 = init_render_state(o128, tables[0], torch.arange(o128.num_pixels, device=dev))
+    rp, rd = camera_ray_lookat(o128, st128)
+    t0 = time.perf_counter()
+    occ = stats.raymarch_occupancy(vol, o128, rp, rd, o128.maxDist, o128.maxIter,
+                                   torch.ones(o128.num_pixels, dtype=torch.bool, device=dev),
+                                   accel=bricks)
+    occ_s = time.perf_counter() - t0
+    require(occ["rounds"] > 1 and 0.0 <= occ["wasted_lane_ratio"] < 1.0, f"occupancy {occ}")
+    log(f"measured_hit_fraction (main path, 512^2 primary pass, brick table): {hit_frac:.6f} "
+        f"in {hit_s:.3f} s; raymarch_occupancy (128^2): {occ['rounds']} rounds, "
+        f"wasted_lane_ratio {occ['wasted_lane_ratio']:.4f}, {occ_s:.3f} s")
+    multi.update(hit_fraction=hit_frac, hit_fraction_s=hit_s, occupancy_rounds=occ["rounds"],
+                 wasted_lane_ratio=occ["wasted_lane_ratio"], occupancy_s=occ_s)
+    # the gallery at its defaults (256x144, 2 spp) on the card
+    zero_counts()
+    with tempfile.TemporaryDirectory() as td, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        gal_paths = gallery.main([td])
+        gal_s = time.perf_counter() - t0
+        gal_imgs = [np.asarray(Image.open(p_).convert("RGB")) for p_ in gal_paths]
+    cnt_gal = counts()
+    require(len(gal_imgs) == 6 and all(im.shape == (144, 256, 3) and im.std() > 1.0
+                                       for im in gal_imgs), "gallery: six PNGs, none flat")
+    require(cnt_gal == {"K1": 0, "K2": 6, "K2c": 4, "packs": 6},
+            f"gallery: expected six packing launches, four of them K2c, got {cnt_gal}")
+    log(f"gallery (scripts/gallery.py, 256x144, 2 spp): six PNGs in {gal_s:.2f} s; launches "
+        f"{cnt_gal}")
+    multi.update(tiled_frames_s=fr_t, tiled_launches=cnt_tiled, k2_tiles_ms=k2_tiles_ms,
+                 k2_tile_ms=k2_tile_ms, gallery_s=gal_s, phase_s=time.perf_counter() - t_phase)
+    log(f"multi-device phase: {multi['phase_s']:.1f} s")
+
     # -- 9. the kernels line ---------------------------------------------------
     # K1 on its own reads accum and writes the image; fused, it writes the
     # image from registers
@@ -988,7 +1192,10 @@ def main():
         "main": dict(launches, packs=packs), "metal path": dict(launches_m, packs=packs_m),
         "config 3": configs["config 3"]["launches"], "config 4": configs["config 4"]["launches"],
         "config 5 straight": cnt_straight5, "config 5 chunked": cnt_chunked5,
-        "config 5 fully resumed": cnt_resume5, "test_anim": cnt_anim}
+        "config 5 fully resumed": cnt_resume5, "test_anim": cnt_anim,
+        "main tiled 4 x cuda:0": cnt_tiled, "metal first pass tiled": cnt_mt,
+        "main spp 4": multi["spp 4"]["launches"], "main 2d 2x2": multi["2d 2x2"]["launches"],
+        "gallery": cnt_gal}
     kernels = [
         # the main path packs in K2's epilogue (`launches`: its packs); ms
         # and bound_ms are the kernel on its own, which render.pack_argb runs
@@ -1003,7 +1210,7 @@ def main():
         kernel_entry("K2 render_pass", "raymarchcl_tpu_torch/csrc/render_pass.cu",
                      "raymarchcl_tpu/ops/render.py:56", launches["K2"], k2_err, k2_pack_ms,
                      plain_frame_ms, k2_bound, None, ms_per_pass=k2_pack_ms / 16,
-                     ms_without_pack=k2_ms,
+                     ms_without_pack=k2_ms, ms_tiled_4=k2_tiles_ms,
                      ms_raw=k2_raw_ms, plain_ms_per_pass=plain["accel"]["ms"],
                      plain_ms_per_pass_raw=plain["raw"]["ms"], bound_ms_raw=k2_raw_bound[0],
                      samples=k2_lanes["samples"],
@@ -1064,7 +1271,8 @@ def main():
                     "busy_untraced": busy, "accum_sha256": digest, "argb_sha256": argb_digest,
                     "accel_build_s": t_accel, "configs": configs,
                     "new_inputs": {k: {"max_abs_err": v[0], "plain_ms": v[1]}
-                                   for k, v in new_cases.items()}, "card": card}))
+                                   for k, v in new_cases.items()}, "multi_device": multi,
+                    "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

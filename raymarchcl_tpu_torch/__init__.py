@@ -10,7 +10,14 @@ Layers (module names mirror raymarchcl_tpu):
                   formats and checkpoints, convert (numpy state in)
   ops             plain PyTorch renderer: sampling, camera, march, shade, render
   ops/kernels     hand-written CUDA kernels (csrc/) with their plain versions:
-                  K2 render_pass (one spp pass), K1 tonemap (pack)
+                  K2 render_pass (a frame's spp passes, over a pixel range),
+                  K1 tonemap (pack), E1-E5 prims (probes)
+  parallel        tiling (pixel tiles, pass shards and both over a mesh of
+                  devices), distributed (process groups, torch.distributed)
+  utils           metrics (timers, ray budgets, frame reports, the hit
+                  fraction) and stats (march occupancy)
+  scripts         gallery, render_tiled (one tile a process), run_config5,
+                  and the card's measurement tools
 
 Importing the package imports neither jax nor raymarchcl_tpu, and builds no
 kernel: ops/kernels/build.py compiles csrc/ with nvcc on first CUDA use.

@@ -41,6 +41,11 @@
 //   a frame takes no K1 launch and never reads accum back.
 // - Any aoIter. The AO probes' distances and sample caps come beside the
 //   pass times (one copy a frame) and are read through the read-only path.
+// - Pixel ranges. A launch renders the rows of a range of global pixel ids
+//   (one tile of a multi-device frame, parallel/tiling.py): its warps take
+//   only the tiles of the tile rows the range touches and mask the pixels
+//   outside it. A pixel keeps its global id, x and y, which seed its passes,
+//   so a frame rendered range by range equals one launch bit for bit.
 //
 // - K2c, the reflective presets (reflectIter > 0), are instances of their
 //   own (kReflect), so the bounce loop adds no code or registers to the
@@ -78,6 +83,7 @@
 // fifth of the lanes), and work units of one pass of one tile (a warp that
 // keeps its tile for all passes reuses the tile's bricks in L1).
 #include <algorithm>
+#include <climits>
 
 #include "rmcl_common.cuh"
 
@@ -545,33 +551,72 @@ __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
   return apply_atmosphere(S, lseed, ray_pos, ray_dir, isec.dist, col);
 }
 
+// The work items of a launch over the pixel range [pixLo, pixLo + pixCount):
+// the 8x4 tiles of the tile rows that the range's frame pixels touch, then
+// its pad rows, 32 to an item. Row i of accum/argb is pixel pixLo + i; a row
+// past the frame's last pixel (a pad row) renders that pixel again, as the
+// JAX package's padded shards do (parallel/tiling.py). The whole frame is
+// pixLo 0, pixCount width*height: every tile, no pad row. The launcher
+// derives it and passes it as a kernel argument, which the kernel reads
+// from the parameter bank: none of it holds a register over the passes.
+struct RangeWork {
+  int lo, hi;       // the range's frame pixels [lo, hi)
+  int tiles_x;      // tiles in a tile row
+  int tile_y0;      // the first tile row they touch
+  int frame_tiles;  // tiles of the tile rows they touch
+  int pad0;         // the first pad row (hi - lo)
+  int items;        // frame_tiles, then the pad rows' items
+};
+
+static RangeWork range_work(const RmclParams& P) {
+  const int n = P.width * P.height;
+  RangeWork r;
+  r.lo = std::min(P.pixLo, n);
+  r.hi = std::min(P.pixLo + P.pixCount, n);
+  r.tiles_x = (P.width + kTileW - 1) / kTileW;
+  r.pad0 = r.hi - r.lo;
+  r.tile_y0 = r.lo / P.width / kTileH;
+  r.frame_tiles = r.pad0 > 0 ? ((r.hi - 1) / P.width / kTileH - r.tile_y0 + 1) * r.tiles_x : 0;
+  r.items = r.frame_tiles + (P.pixCount - r.pad0 + 31) / 32;
+  return r;
+}
+
 // Passes [0, npass) of tables (npass, tableLen) at times (npass,), AO probes
-// ao_d/ao_trunc. Each warp takes 8x4 pixel tiles from *next_tile until none
-// is left; argb: null, or the packed pixels of the final accum (K1's pack as
-// the epilogue: the thread holds its pixel's accum in registers); counts: the
-// counting build's (iterations, lanes) per loop, else null.
+// ao_d/ao_trunc, over the rows of the pixel range (its work W). Each warp
+// takes work items (8x4 pixel tiles, then 32 pad rows) from *next_tile until
+// none is left; a pixel keeps its global id, x and y, which seed its passes,
+// and its row in accum/argb is its id - pixLo. argb: null, or the packed
+// pixels of the final accum (K1's pack as the epilogue: the thread holds its
+// pixel's accum in registers); counts: the counting build's (iterations,
+// lanes) per loop, else null.
 template <class K>
 __global__ void __launch_bounds__(kThreads)
-render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __restrict__ vol,
+render_passes_kernel(const __grid_constant__ RmclParams P, const RangeWork W,
+                     const uint8_t* __restrict__ vol,
                      const float4* __restrict__ tables, const float* __restrict__ times,
                      const float* __restrict__ ao_d, const int* __restrict__ ao_trunc,
                      int npass, const int* __restrict__ rows, float* __restrict__ accum,
                      uint32_t* __restrict__ argb, int* __restrict__ next_tile,
                      unsigned long long* __restrict__ counts) {
   const int lane = threadIdx.x & 31;
-  const int tiles_x = (P.width + kTileW - 1) / kTileW;
-  const int n_tiles = tiles_x * ((P.height + kTileH - 1) / kTileH);
   Counts c = {};
   for (;;) {
     int t = 0;
     if (lane == 0) t = atomicAdd(next_tile, 1);
     t = __shfl_sync(0xffffffffu, t, 0);
-    if (t >= n_tiles) break;
-    int x = (t % tiles_x) * kTileW + (lane % kTileW);
-    int y = (t / tiles_x) * kTileH + (lane / kTileW);
-    if (x < P.width && y < P.height) {
+    if (t >= W.items) break;
+    // a pad row: the frame's last pixel again
+    int x = P.width - 1, y = P.height - 1;
+    int row = W.pad0 + (t - W.frame_tiles) * 32 + lane;
+    if (t < W.frame_tiles) {
+      x = (t % W.tiles_x) * kTileW + (lane % kTileW);
+      y = (W.tile_y0 + t / W.tiles_x) * kTileH + (lane / kTileW);
+      const int id = y * P.width + x;
+      row = x < P.width && id >= W.lo && id < W.hi ? id - W.lo : -1;
+    }
+    if (row >= 0 && row < P.pixCount) {
       int pid = y * P.width + x;
-      float* a = accum + 3 * (size_t)pid;
+      float* a = accum + 3 * (size_t)row;
       float a0 = a[0], a1 = a[1], a2 = a[2];
       for (int p = 0; p < npass; ++p) {
         const Scene S{P, vol, tables + (size_t)p * P.tableLen, rows, ao_d, ao_trunc,
@@ -585,7 +630,7 @@ render_passes_kernel(const __grid_constant__ RmclParams P, const uint8_t* __rest
       a[0] = a0;
       a[1] = a1;
       a[2] = a2;
-      if (argb) argb[pid] = pack_argb(a0, a1, a2, P.gamma);
+      if (argb) argb[row] = pack_argb(a0, a1, a2, P.gamma);
     }
     __syncwarp();
   }
@@ -608,13 +653,14 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
   if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                                            kThreads, 0);
   if (e != cudaSuccess) return (int)e;
-  int tiles = ((params->width + kTileW - 1) / kTileW) * ((params->height + kTileH - 1) / kTileH);
+  const RangeWork work = range_work(*params);
   int warps = kThreads / 32;
-  int blocks = std::min(std::max(per_sm, 1) * sms, (tiles + warps - 1) / warps);
+  int blocks = std::min(std::max(per_sm, 1) * sms, (work.items + warps - 1) / warps);
   // the AO probe table follows the pass times (render_pass.launch_block)
   const float* ao_d = times + npass;
   const int* ao_trunc = reinterpret_cast<const int*>(ao_d + params->aoIter + 1);
-  kernel<<<blocks, kThreads, 0, stream>>>(*params, vol, reinterpret_cast<const float4*>(tables),
+  kernel<<<blocks, kThreads, 0, stream>>>(*params, work, vol,
+                                          reinterpret_cast<const float4*>(tables),
                                           times, ao_d, ao_trunc, npass, rows, accum, argb,
                                           next_tile, counts);
   return (int)cudaGetLastError();
@@ -622,8 +668,9 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
 
 // times: each pass's time (npass floats), then the AO probe table of
 // aoIter + 1 distances (float) and aoIter + 1 sample caps (int); rows: the
-// brick table, or null for the raw march; argb: null, or width*height packed
-// pixels of the final accum (with npass == 0, of accum as given); next_tile:
+// brick table, or null for the raw march; accum: pixCount rows of 3 floats,
+// row i pixel min(pixLo + i, width*height - 1); argb: null, or the pixCount
+// packed pixels of the final accum (with npass == 0, of accum as given); next_tile:
 // one zeroed int; counts: null, or 2*kCountedLoops zeroed uint64 for the
 // counting build (which needs the brick table). reflectIter > 0 selects the
 // reflective instances.
@@ -646,8 +693,12 @@ extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
                                   const float* tables, const float* times, int npass,
                                   const int* rows, float* accum, uint32_t* argb, int* next_tile,
                                   unsigned long long* counts, cudaStream_t stream) {
-  if (npass < 0 || params->aoIter < 0) return (int)cudaErrorInvalidValue;
-  if ((npass == 0 && !argb) || params->width <= 0 || params->height <= 0) return 0;
+  if (npass < 0 || params->aoIter < 0 || params->pixLo < 0 || params->pixCount < 0 ||
+      params->pixLo > INT_MAX - params->pixCount)
+    return (int)cudaErrorInvalidValue;
+  if ((npass == 0 && !argb) || params->width <= 0 || params->height <= 0 ||
+      params->pixCount == 0)
+    return 0;
   if (counts && !rows) return (int)cudaErrorInvalidValue;
   if (params->reflectIter > 0)
     return dispatch<true>(params, vol, tables, times, npass, rows, accum, argb, next_tile,
@@ -655,3 +706,7 @@ extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
   return dispatch<false>(params, vol, tables, times, npass, rows, accum, argb, next_tile,
                          counts, stream);
 }
+
+// sizeof(RmclParams), which the loader holds to its ctypes mirror
+// (ops/kernels/build.library)
+extern "C" int rmcl_params_size() { return (int)sizeof(RmclParams); }

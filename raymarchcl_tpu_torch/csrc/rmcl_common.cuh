@@ -23,6 +23,7 @@ struct RmclParams {
   int tableLen;              // MC table entries (float4) of one pass
   int edge, brickShift, nbx, nby, rowWords;  // brick table (ops/accel.py); 0 without
   int aoSteps;               // maxVoxelIter / 2
+  int pixLo, pixCount;       // the rows of accum/argb: row i is pixel min(pixLo + i, width*height - 1)
   float marchScale;          // 1 / (maxVoxelIter * 0.5)
   float aoScale;             // 1 / (aoSteps * 0.5)
   float shadowBaseStep;      // (2 / maxVoxelIter) * min(invVoxelScale * voxelBounds2)

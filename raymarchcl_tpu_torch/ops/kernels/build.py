@@ -126,6 +126,14 @@ def library() -> ctypes.CDLL:
             fn.restype = i32
         lib.rmcl_error_string.argtypes = [i32]
         lib.rmcl_error_string.restype = ctypes.c_char_p
+        lib.rmcl_params_size.argtypes = []
+        lib.rmcl_params_size.restype = i32
+        from .render_pass import RmclParams
+
+        if lib.rmcl_params_size() != ctypes.sizeof(RmclParams):
+            raise RuntimeError(f"struct RmclParams is {lib.rmcl_params_size()} bytes in "
+                               f"csrc/rmcl_common.cuh, {ctypes.sizeof(RmclParams)} in its "
+                               "ctypes mirror (ops/kernels/render_pass.py)")
         _lib = lib
     return _lib
 

@@ -9,7 +9,9 @@ pass of its pixel in order. Presets with reflections (reflectIter > 0) run
 the kernel's reflective instances, which add the bounce loop. Its plain
 version is `render_pass_plain`, built from this package's ops modules, once
 per pass. Both march over the brick table (ops/accel.py) when one is given,
-with the same result as without it.
+with the same result as without it. Both render a range of the frame's
+pixels when asked (`pix_lo`, `pix_count`: one tile of a multi-device frame,
+parallel/tiling.py); a pixel keeps its global id, which seeds its passes.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ class RmclParams(ctypes.Structure):
         ("maxIter", _i), ("maxVoxelIter", _i), ("shadowIter", _i), ("aoIter", _i),
         ("numLights", _i), ("isoVal", _i), ("reflectIter", _i), ("tableLen", _i),
         ("edge", _i), ("brickShift", _i), ("nbx", _i), ("nby", _i), ("rowWords", _i),
-        ("aoSteps", _i),
+        ("aoSteps", _i), ("pixLo", _i), ("pixCount", _i),
         ("marchScale", _f), ("aoScale", _f), ("shadowBaseStep", _f),
         ("invNumLights", _f), ("voxelSize", _f),
         ("bmin", _f * 3), ("bmax", _f * 3), ("vb", _f * 3), ("vb2", _f * 3),
@@ -68,12 +70,14 @@ class RmclParams(ctypes.Structure):
     ]
 
 
-def make_params(opts, accel: Accel | None = None) -> RmclParams:
-    """The kernel's parameter block, one per frame (the pass times and AO
+def make_params(opts, accel: Accel | None = None, pix_lo: int = 0,
+                pix_count: int | None = None) -> RmclParams:
+    """The kernel's parameter block, one per launch (the pass times and AO
     probes go beside it, `launch_block`); derived constants in float32
     exactly as the plain version computes them. The brick fields stay 0
     without a brick table; reflectIter > 0 selects the reflective
-    instance."""
+    instance; the launch renders the pixel range `pixel_range(opts, pix_lo,
+    pix_count)` gives."""
     if not 1 <= opts.numLights <= MAX_LIGHTS:
         raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}] (the kernel's light arrays; "
                          f"the JAX presets use 1 or 2), got {opts.numLights}")
@@ -92,6 +96,7 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
         p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
         p.rowWords = row_words(accel.edge)
     p.aoSteps = opts.maxVoxelIter // 2
+    p.pixLo, p.pixCount = pixel_range(opts, pix_lo, pix_count)
     p.marchScale = float(f32(1.0 / (opts.maxVoxelIter * 0.5)))
     p.aoScale = float(f32(1.0 / (p.aoSteps * 0.5)))
     f_min = min(a * b for a, b in zip(opts.invVoxelScale, opts.voxelBounds2))
@@ -118,6 +123,19 @@ def make_params(opts, accel: Accel | None = None) -> RmclParams:
     return p
 
 
+def pixel_range(opts, pix_lo: int = 0, pix_count: int | None = None) -> tuple:
+    """(pix_lo, pix_count) of a launch, pix_count by default the pixels
+    from pix_lo to the frame's end. Row i of its accum and image is pixel
+    min(pix_lo + i, N - 1): rows past the last pixel (a padded tile's tail)
+    render that pixel again, as the JAX package's padded shards do."""
+    n = opts.num_pixels
+    pix_lo = int(pix_lo)
+    pix_count = max(n - pix_lo, 0) if pix_count is None else int(pix_count)
+    if pix_lo < 0 or pix_count < 0 or pix_lo + pix_count > 2**31 - 1:
+        raise ValueError(f"pixel range [{pix_lo}, {pix_lo} + {pix_count}) out of bounds")
+    return pix_lo, pix_count
+
+
 def pass_times(times) -> torch.Tensor:
     """Each pass's time as the float32 value `opts.replace(time=t)` gives
     it: a (P,) float32 CPU tensor."""
@@ -139,9 +157,12 @@ def launch_block(opts, times: torch.Tensor) -> torch.Tensor:
                                             cap]))
 
 
-def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> torch.Tensor:
-    """Plain version of one pass: the pass's blended accum (a new tensor)."""
-    ids = torch.arange(opts.num_pixels, device=accum.device)
+def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None,
+                      pix_lo: int = 0) -> torch.Tensor:
+    """Plain version of one pass: the pass's blended accum (a new tensor).
+    accum's rows are the pixel range from pix_lo (`pixel_range`)."""
+    ids = torch.clamp(torch.arange(pix_lo, pix_lo + accum.shape[0], device=accum.device),
+                      max=opts.num_pixels - 1)
     state = init_render_state(opts, table, ids)
     ray_pos, ray_dir = camera_ray_lookat(opts, state)
     col = scene_color(vol, opts, table, state, ray_pos, ray_dir, accel)
@@ -149,7 +170,7 @@ def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None) -> to
     return fma(col_a - accum, opts.frameBlend, accum)
 
 
-def _check(vol, opts, tables, times, accum, accel, argb=None):
+def _check(vol, opts, tables, times, accum, accel, argb=None, pix_count=None):
     rx, ry, rz, _ = opts.voxelRes
     if vol.dtype != torch.uint8 or vol.shape != (rx * ry * rz,):
         raise ValueError(f"vol must be flat uint8 of {rx * ry * rz} voxels, got "
@@ -160,8 +181,9 @@ def _check(vol, opts, tables, times, accum, accel, argb=None):
                          f"{tuple(tables.shape)} {tables.dtype}")
     if times.shape != (tables.shape[0],):
         raise ValueError(f"times: {tuple(times.shape)} for {tables.shape[0]} passes")
-    if accum.dtype != torch.float32 or accum.shape != (opts.num_pixels, 3):
-        raise ValueError(f"accum must be ({opts.num_pixels}, 3) float32, got "
+    n = opts.num_pixels if pix_count is None else pix_count
+    if accum.dtype != torch.float32 or accum.shape != (n, 3):
+        raise ValueError(f"accum must be ({n}, 3) float32, got "
                          f"{tuple(accum.shape)} {accum.dtype}")
     if not (vol.is_contiguous() and tables.is_contiguous() and accum.is_contiguous()):
         raise ValueError("vol, table and accum must be contiguous")
@@ -176,21 +198,22 @@ def _check(vol, opts, tables, times, accum, accel, argb=None):
                              f"{nbx * nby * nbz} of edge {accel.edge}")
         if not rows.is_contiguous() or rows.device != vol.device:
             raise ValueError(f"accel rows must be contiguous on {vol.device}")
-    if argb is not None and (argb.dtype != torch.int32 or argb.shape != (opts.num_pixels,)
+    if argb is not None and (argb.dtype != torch.int32 or argb.shape != (n,)
                              or not argb.is_contiguous() or argb.device != accum.device):
-        raise ValueError(f"argb must be contiguous ({opts.num_pixels},) int32 on "
+        raise ValueError(f"argb must be contiguous ({n},) int32 on "
                          f"{accum.device}, got {tuple(argb.shape)} {argb.dtype} on {argb.device}")
 
 
-def _launch(vol, opts, tables, times, accum, accel, counts, argb=None) -> None:
-    """One launch of K2 over all passes; `counts` selects the counting build,
-    `argb` the pack of the final accum."""
+def _launch(vol, opts, tables, times, accum, accel, counts, argb=None, pix_lo=0,
+            pix_count=None) -> None:
+    """One launch of K2 over all passes and the pixel range; `counts`
+    selects the counting build, `argb` the pack of the final accum."""
     if accum.device.type != "cuda":
         raise ValueError(f"unsupported device {accum.device}")
     if tables.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     global LAUNCHES, PACKS, REFLECTIVE_LAUNCHES
-    params = make_params(opts, accel)
+    params = make_params(opts, accel, pix_lo, pix_count)
     # pinned and non-blocking: a pageable copy would wait for the stream
     block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
     next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
@@ -212,31 +235,37 @@ def _launch(vol, opts, tables, times, accum, accel, counts, argb=None) -> None:
 
 
 def render_passes(vol, opts, tables, times, accum, accel: Accel | None = None,
-                  argb: torch.Tensor | None = None) -> torch.Tensor:
+                  argb: torch.Tensor | None = None, pix_lo: int = 0,
+                  pix_count: int | None = None) -> torch.Tensor:
     """Passes [0, P) of `tables` (P, T, 4) at `times` (P,), blended into
     `accum` in place in order; returns accum. `accel` is the volume's brick
-    table or None. `argb`, an (N,) int32 tensor or None, is filled with the
-    final accum tonemapped and packed (K1's function). CPU tensors take the
-    plain versions, pass by pass, then the pack; CUDA tensors launch the
-    kernel once, which packs in its epilogue (or raise)."""
+    table or None. `argb`, an int32 tensor or None, is filled with the
+    final accum tonemapped and packed (K1's function). accum (pix_count, 3)
+    and argb (pix_count,) hold the pixel range from pix_lo (`pixel_range`;
+    by default the whole frame, N rows). CPU tensors take the plain
+    versions, pass by pass, then the pack; CUDA tensors launch the kernel
+    once, which packs in its epilogue (or raise)."""
     times = pass_times(times)
-    _check(vol, opts, tables, times, accum, accel, argb)
+    pix_lo, pix_count = pixel_range(opts, pix_lo, pix_count)
+    _check(vol, opts, tables, times, accum, accel, argb, pix_count)
     if accum.device.type == "cpu":
         for p in range(tables.shape[0]):
             accum.copy_(render_pass_plain(vol, opts.replace(time=times[p]), tables[p], accum,
-                                          accel))
+                                          accel, pix_lo))
         if argb is not None:
             argb.copy_(tonemap_pack_plain(accum, opts.gamma))
         return accum
-    _launch(vol, opts, tables, times, accum, accel, None, argb)
+    _launch(vol, opts, tables, times, accum, accel, None, argb, pix_lo, pix_count)
     return accum
 
 
 def render_pass(vol, opts, table, accum, accel: Accel | None = None,
-                argb: torch.Tensor | None = None) -> torch.Tensor:
+                argb: torch.Tensor | None = None, pix_lo: int = 0,
+                pix_count: int | None = None) -> torch.Tensor:
     """One pass (`table` (T, 4) at opts.time) blended into `accum` in place;
     returns accum. The one-pass call of `render_passes`."""
-    return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel, argb)
+    return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel, argb,
+                         pix_lo, pix_count)
 
 
 def count_lanes(vol, opts, tables, times, accum, accel: Accel) -> dict:

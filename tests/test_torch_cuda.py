@@ -6,6 +6,7 @@ on a machine with a GPU and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -16,10 +17,11 @@ from raymarchcl_tpu_torch.io import checkpoint
 from raymarchcl_tpu_torch.models import generators, mesh
 from raymarchcl_tpu_torch.ops import accel, render, sampling
 from raymarchcl_tpu_torch.ops.camera import compute_eyepos
-from raymarchcl_tpu_torch.ops.kernels import prims
+from raymarchcl_tpu_torch.ops.kernels import build, prims
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
 from raymarchcl_tpu_torch.ops.kernels import tonemap as k1
 from raymarchcl_tpu_torch.options import render_options
+from raymarchcl_tpu_torch.parallel import tiling
 from raymarchcl_tpu_torch.scripts import bench_prims
 
 
@@ -529,3 +531,54 @@ def test_checkpointed_cuda_chunks_and_full_resume(cuda_device, tmp_path):
     assert (k1.LAUNCHES, k2.LAUNCHES) == (before[0] + 1, before[1])
     np.testing.assert_array_equal(argb_r, argb)
     assert torch.equal(acc_r, acc)
+
+
+@pytest.mark.cuda
+def test_params_layout_cuda(cuda_device):
+    """The library reports the size of its parameter block, which its ctypes
+    mirror must share (the loader refuses a library where they differ)."""
+    assert build.library().rmcl_params_size() == ctypes.sizeof(k2.RmclParams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["ao", "metal"])
+def test_k2_cuda_pixel_range_matches_plain(cuda_device, mat):
+    """K2 (and K2c) over a ragged pixel range, the last of 3 tiles of a
+    100x37 frame: it starts mid-row (pixel 2468 is x 68 of row 24) and ends
+    in 2 pad rows, which render pixel N-1 again. Within the tolerance of the
+    plain version over the same range; the pad rows equal row N-1's."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 100, 37, 2, mat)
+    n, blk = opts.num_pixels, -(-opts.num_pixels // 3)
+    lo = 2 * blk
+    acc = torch.full((blk, 3), 0.25, device=cuda_device)
+    argb = torch.zeros(blk, dtype=torch.int32, device=cuda_device)
+    want = acc.clone()
+    for p in range(2):
+        want = k2.render_pass_plain(vol, opts.replace(time=times[p]), tables[p], want, bricks,
+                                    pix_lo=lo)
+    before = k2.LAUNCHES
+    k2.render_passes(vol, opts, tables, times, acc, bricks, argb, pix_lo=lo, pix_count=blk)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 1
+    ok = torch.isclose(acc, want, rtol=5e-3, atol=5e-3).all(dim=1)
+    assert float(ok.float().mean()) >= 0.995
+    real = n - lo
+    assert blk - real == 2 and torch.equal(acc[real:], acc[real - 1:real].expand(2, 3))
+    assert torch.equal(argb, k1.tonemap_pack_plain(acc, opts.gamma))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["ao", "metal"])
+def test_k2_cuda_tiles_bit_equal_one_launch(cuda_device, mat):
+    """A 100x37 frame in 3 tiles (3 pixel-range launches on one card)
+    equals one launch of the whole frame bit for bit, accum and image."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 100, 37, 2, mat)
+    argb_1, acc_1 = render.render_image(vol, opts, tables, times, accel=bricks)
+    before = k2.LAUNCHES
+    argb_t, acc_t = tiling.render_image_tiled(vol, opts, tables, times,
+                                              mesh=tiling.make_mesh([cuda_device] * 3),
+                                              accel=bricks)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES == before + 3
+    np.testing.assert_array_equal(argb_t, argb_1)
+    assert acc_t.shape == (3702, 3) and torch.equal(acc_t[:3700], acc_1)
