@@ -42,8 +42,14 @@ passes sharded 4 ways and over a 2x2 mesh (K1 alone packs; within
 rtol=2e-5, atol=1e-6 of one launch), two processes in a gloo group through
 raymarchcl_tpu_torch.scripts.render_tiled (both ranks hold the untiled
 digests), utils' measured_hit_fraction and raymarch_occupancy, and
-scripts/gallery.py at its defaults. The main path's, the metal frame's and configs 3-5's accum and
-image must keep their sha256 (DIGESTS). One line per phase; the
+scripts/gallery.py at its defaults. Then the headline benchmark, `python -m
+raymarchcl_tpu_torch bench`, in a subprocess (its gate must hold, with the
+main path's digests; five samples; one packing K2 launch a timed frame),
+scripts/run_configs.py's five BASELINE configs at full spp (configs 1 and 2
+also held to the plain version on their first pass), scripts/bench_anim.py
+with 3 steady frames and scripts/preview_quality.py. The main path's, the
+metal frame's and configs 1-5's accum and image must keep their sha256
+(DIGESTS, raymarchcl_tpu_torch/scripts/digests.py). One line per phase; the
 second-to-last line is a JSON object with one entry per kernel, the last
 line the JSON result.
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -105,25 +111,6 @@ MESH_VOLUMES = {
 CAM = dict(eyepos=(135, 2.25, 0.35), targetpos=[0, -0.4, 0])  # the main path's orbit camera
 CAM3 = dict(eyepos=(120, 2.0, 0.5), targetpos=[0, 0, 0])  # config 3's (run_configs.py:89)
 SHOWCASE = os.path.join(REPO, "docs", "showcase-config5-100spp.png")
-# sha256 of the accum bytes and of the image of the main path's frame (`ao`)
-# and of the reflective path's (`metal`): a change of K1, K2 or K2c keeps
-# both frames bit-equal to their parent's
-DIGESTS = {
-    "ao": ("d402e556c2fdc8ee63f62fe85e62c644eecbb3a09b07a0d55e6f410e0d75fdfd",
-           "fa6d675da75f37b7e5e0e8c84f26b888784eed444cfcb29cbbe96231af30a4dc"),
-    "metal": ("d75cb27e04d9d1778d78171a21545321da539ee8794c7a52543710528ea17789",
-              "23b5a9f4f8e72bf2897d0c6166fa29c9283a2b654d0863cef2fe151e01502aa8"),
-    # BASELINE configs 3 (mesh 64^3, ao) and 4 (scatter 128^3, metal) at
-    # 512^2, 16 spp, and config 5 (1024^2, metal, dof 0.025, 100 spp)
-    "config 3": ("e9b21466613f37801bbe9cff37e7b1470e6ef38903c287a53380b809cea8bf5f",
-                 "f5fe61792b1b0b1660e83bb0800841341b3d5a07bc972a5ed5ca444c16125509"),
-    "config 4": ("128aeef99e526fd2ce21b3036c58096229b605ffa4d65e5952612d4023e409c7",
-                 "15e4bdc1e59916c2fea39f1cb0fc72afe8dfe34904d61bdbba6999bb243ee10e"),
-    "config 5": ("185c13e37995a57fb8f36c5a363c520b369a6ee5247594a8670c200988790f43",
-                 "03ed5fca8d55058ac3d472d0c345db180185afc5f588a48b92fbbe344b87066b"),
-}
-
-
 def log(msg):
     print(msg, flush=True)
 
@@ -290,14 +277,12 @@ def main():
     from raymarchcl_tpu_torch.ops.kernels import tonemap as k1
     from raymarchcl_tpu_torch.ops.sampling import make_mc_tables
     from raymarchcl_tpu_torch.options import render_options
+    from raymarchcl_tpu_torch.runtime import card as card_of
     from raymarchcl_tpu_torch.scripts import bench_prims
+    from raymarchcl_tpu_torch.scripts.bench import launches as counts
+    from raymarchcl_tpu_torch.scripts.digests import DIGESTS, frame_digests
 
     dev = torch.device("cuda", 0)
-
-    def counts():
-        """The launch counts of K1 alone, K2 (K2c included), K2c, and K2's packs."""
-        return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K2c": k2.REFLECTIVE_LAUNCHES,
-                "packs": k2.PACKS}
 
     def zero_counts():
         k1.LAUNCHES = k2.LAUNCHES = k2.PACKS = k2.REFLECTIVE_LAUNCHES = 0
@@ -325,10 +310,7 @@ def main():
         return agree, ms, samples
 
     # -- 1. the card and the build ------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
-        else f"nvidia-smi unavailable (rc {smi.returncode})"
+    card = card_of(dev)
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -600,8 +582,7 @@ def main():
     launches, packs = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES,
                        "K2c": k2.REFLECTIVE_LAUNCHES}, k2.PACKS
     frame_s = sorted(frames)[1]
-    digest = hashlib.sha256(accum.cpu().numpy().tobytes()).hexdigest()
-    argb_digest = hashlib.sha256(argb.tobytes()).hexdigest()
+    digest, argb_digest = frame_digests(accum, argb)
     log(f"main path (brick table): frames {['%.4f' % f for f in frames]} s, median "
         f"{frame_s:.4f} s; launches {launches}, packs in K2 {packs}; accum sha256 {digest}; "
         f"argb sha256 {argb_digest}")
@@ -672,8 +653,7 @@ def main():
             "metal path image differs from K1's plain pack of its accum")
     n_colors_m = len(np.unique(argb_m))
     require(n_colors_m > 100, f"metal path image has only {n_colors_m} distinct colours")
-    digest_m = hashlib.sha256(accum_m.cpu().numpy().tobytes()).hexdigest()
-    argb_digest_m = hashlib.sha256(argb_m2.tobytes()).hexdigest()
+    digest_m, argb_digest_m = frame_digests(accum_m, argb_m2)
     require((digest_m, argb_digest_m) == DIGESTS["metal"],
             f"metal frame differs from its parent's: accum {digest_m}, image {argb_digest_m}")
 
@@ -805,8 +785,7 @@ def main():
             k2c_err = max(k2c_err, agree_c[2])
         else:
             k2_err = max(k2_err, agree_c[2])
-        dg = (hashlib.sha256(acc_c.cpu().numpy().tobytes()).hexdigest(),
-              hashlib.sha256(argb_c.tobytes()).hexdigest())
+        dg = frame_digests(acc_c, argb_c)
         lanes_c = k2.count_lanes(v, o, tables, times, torch.zeros_like(acc_c), b)
         configs[key] = dict(frames_s=fr, frame_s=sorted(fr)[1], kernel_ms=k_ms, launches=cnt,
                             accum_sha256=dg[0], argb_sha256=dg[1], colours=n_colors_c,
@@ -889,8 +868,7 @@ def main():
     want5 = np.asarray(Image.open(SHOWCASE).convert("RGBA")).astype(np.int32)
     diff5 = np.abs(imageio.argb_to_rgba(argb5).astype(np.int32)[..., :3] - want5[..., :3])
     mad5, off8_5 = float(diff5.mean()), float((diff5 > 8).mean())
-    dg5 = (hashlib.sha256(acc5.cpu().numpy().tobytes()).hexdigest(),
-           hashlib.sha256(argb5.tobytes()).hexdigest())
+    dg5 = frame_digests(acc5, argb5)
     # K2c alone on config 5's frame (a launch of ~1 s: CUDA events suffice)
     times5 = torch.arange(100, dtype=torch.float32) * render_mod.TIME_STEP_INIT
     acc5_k = torch.zeros_like(acc5)
@@ -1028,9 +1006,6 @@ def main():
             out.append(time.perf_counter() - t0)
         return out, res_
 
-    def sha(a):
-        return hashlib.sha256((a.cpu().numpy() if torch.is_tensor(a) else a).tobytes()).hexdigest()
-
     # the main path over 4 tiles of cuda:0: its digests are the untiled frame's
     mesh4 = tiling.make_mesh([dev] * 4)
     tiling.render_image_tiled(vol, opts, tables, mesh=mesh4, accel=bricks)  # warm-up
@@ -1040,8 +1015,8 @@ def main():
     cnt_tiled = counts()
     require(cnt_tiled == {"K1": 0, "K2": 12, "K2c": 0, "packs": 12},
             f"tiled main path: expected 4 packing K2 launches a frame, got {cnt_tiled}")
-    require((sha(acc_t), sha(argb_t)) == DIGESTS["ao"],
-            f"tiled main path differs from the untiled frame: {sha(acc_t)}, {sha(argb_t)}")
+    require(frame_digests(acc_t, argb_t) == DIGESTS["ao"],
+            f"tiled main path differs from the untiled frame: {frame_digests(acc_t, argb_t)}")
     t_blk = n_px // 4
 
     def tile_launch(t):
@@ -1155,6 +1130,85 @@ def main():
                  k2_tile_ms=k2_tile_ms, gallery_s=gal_s, phase_s=time.perf_counter() - t_phase)
     log(f"multi-device phase: {multi['phase_s']:.1f} s")
 
+    # -- 8g. the headline benchmark and the measurement scripts ------------
+    from raymarchcl_tpu_torch.scripts import bench_anim, preview_quality, run_configs
+
+    t_phase = time.perf_counter()
+    entry = {}
+    # python -m raymarchcl_tpu_torch bench at its defaults: its gate, one
+    # JSON line; the launch counts of its timed frames come from its stderr
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "raymarchcl_tpu_torch", "bench"], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=600)
+    bench_s = time.perf_counter() - t0
+    require(r.returncode == 0, f"bench exited {r.returncode}: {r.stderr[-2000:]}")
+    b = json.loads(r.stdout.strip().splitlines()[-1])
+    m = re.search(r"launches in the (\d+) timed frames: (\{.*\})", r.stderr)
+    require(m is not None, f"bench printed no launch counts: {r.stderr[-2000:]}")
+    cnt_bench = json.loads(m[2])
+    require(b["invariants"] is True and "invariant main_path_digests: OK" in r.stderr
+            and b["metric"] == "gyroid512_16spp_ao_frame_time" and len(b["samples"]) == 5
+            and b["device"] == card and b["value"] == sorted(b["samples"])[2],
+            f"bench: {b}; {r.stderr[-1000:]}")
+    require(cnt_bench == {"K1": 0, "K2": 5, "K2c": 0, "packs": 5},
+            f"bench: expected one packing K2 launch a timed frame, got {cnt_bench}")
+    entry["bench"] = dict(b, process_s=bench_s, launches=cnt_bench)
+    log(f"bench (python -m raymarchcl_tpu_torch bench, {bench_s:.2f} s of process): value "
+        f"{b['value']:.6f} s, samples {['%.6f' % x for x in b['samples']]}, hit fraction "
+        f"{b['primary_hit_fraction']:.6f}, invariants {b['invariants']} ("
+        + ", ".join(re.findall(r"invariant (\w+): OK", r.stderr)) + f"); launches {cnt_bench}")
+    # the five BASELINE configs in process at full spp (config 5 at the JAX
+    # script's 4): each frame keeps its digests; configs 1 and 2 are also
+    # held to the plain version on their first pass
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rows = run_configs.main([])
+    cnt_cfg = counts()
+    for row in rows:
+        log(f"run_configs {row['config']}: {row['width']}x{row['height']}, {row['spp']} spp, "
+            f"{row['seconds']:.6f} s; accum sha256 {row['accum_sha256']}; argb sha256 "
+            f"{row['argb_sha256']}; digests equal {row['digests_equal']}")
+    require(all(row["digests_equal"] is True for row in rows) and len(rows) == 5,
+            "run_configs: a config's frame differs from its DIGESTS entry")
+    # two frames a config, a launch of up to 16 passes each (config 2: two)
+    require(cnt_cfg == {"K1": 0, "K2": 12, "K2c": 4, "packs": 12},
+            f"run_configs: expected 12 packing launches, 4 of them K2c, got {cnt_cfg}")
+    for key, w_c, n_c, kw_c in (("config 1", 224, 1, {}), ("config 2", 512, 25, {"fogPow": 0.1})):
+        o = render_options(width=w_c, height=w_c, iter=n_c, vres=list(res), mat="ao",
+                           **camera(CAM), **kw_c)
+        agree_c, plain_c_ms, _ = first_pass_vs_plain(
+            f"{key} {w_c}^2 ao 1 pass vres256 brick table{', fogPow 0.1' if kw_c else ''}", vol,
+            o.replace(time=times[0]), make_mc_tables(n_c, seed=0, device=dev)[0], bricks)
+        k2_err = max(k2_err, agree_c[2])
+        entry[key] = dict(agree_pass=agree_c[0], max_abs_err_pass=agree_c[2],
+                          plain_ms_pass=plain_c_ms)
+    entry["run_configs"] = dict(rows=rows, launches=cnt_cfg)
+    # bench_anim with 3 steady frames, preview_quality at its defaults
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        anim = bench_anim.main(["--frames", "3"])
+    cnt_banim = counts()
+    require(cnt_banim == {"K1": 0, "K2": 8, "K2c": 0, "packs": 8} and anim["device"] == card
+            and len(anim["steady_state_s_per_frame"]) == 3,
+            f"bench_anim: {anim}, launches {cnt_banim} (expected 4 frames and 4 previews)")
+    log(f"bench_anim (512^2, 2 spp, ao, 3 steady frames): first frame "
+        f"{anim['first_frame_incl_compile_s']:.4f} s, steady "
+        f"{['%.6f' % x for x in anim['steady_state_s_per_frame']]} s, preview 256^2 "
+        f"{anim['preview_256_s']:.6f} s; launches {cnt_banim}")
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        pq = preview_quality.main([])
+    cnt_pq = counts()
+    require(cnt_pq == {"K1": 0, "K2": 4, "K2c": 0, "packs": 4} and 0.0 < pq["ssim"] <= 1.0,
+            f"preview_quality: {pq}, launches {cnt_pq} (expected 2 full and 2 preview frames)")
+    log(f"preview_quality (256^2, ao, full 4 spp vs preview): full {pq['full_s']:.6f} s, preview "
+        f"{pq['preview_s']:.6f} s, speed-up {pq['speedup']:.3f}x, SSIM {pq['ssim']:.4f}; "
+        f"launches {cnt_pq}")
+    entry.update(bench_anim=dict(anim, launches=cnt_banim),
+                 preview_quality=dict(pq, launches=cnt_pq), phase_s=time.perf_counter() - t_phase)
+    log(f"entry-point phase: {entry['phase_s']:.1f} s")
+
     # -- 9. the kernels line ---------------------------------------------------
     # K1 on its own reads accum and writes the image; fused, it writes the
     # image from registers
@@ -1195,7 +1249,8 @@ def main():
         "config 5 fully resumed": cnt_resume5, "test_anim": cnt_anim,
         "main tiled 4 x cuda:0": cnt_tiled, "metal first pass tiled": cnt_mt,
         "main spp 4": multi["spp 4"]["launches"], "main 2d 2x2": multi["2d 2x2"]["launches"],
-        "gallery": cnt_gal}
+        "gallery": cnt_gal, "bench (timed frames)": cnt_bench, "run_configs": cnt_cfg,
+        "bench_anim": cnt_banim, "preview_quality": cnt_pq}
     kernels = [
         # the main path packs in K2's epilogue (`launches`: its packs); ms
         # and bound_ms are the kernel on its own, which render.pack_argb runs
@@ -1272,7 +1327,7 @@ def main():
                     "accel_build_s": t_accel, "configs": configs,
                     "new_inputs": {k: {"max_abs_err": v[0], "plain_ms": v[1]}
                                    for k, v in new_cases.items()}, "multi_device": multi,
-                    "card": card}))
+                    "entry_points": entry, "card": card}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

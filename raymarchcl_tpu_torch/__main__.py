@@ -3,8 +3,9 @@
 Counterpart of `raymarchcl_tpu/__main__.py`. The reference is REPL-driven
 only (README.org:9-38); this CLI covers the same workflows
 non-interactively: still renders, turntable animations, volume baking and
-mesh voxelization, and a report of the card and the kernel toolchain.
-Renders run on the CUDA card unless `--device cpu` is given.
+mesh voxelization, a report of the card and the kernel toolchain, and the
+headline benchmark (scripts/bench.py). Renders run on the CUDA card unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -29,8 +30,6 @@ def _add_render_args(p):
 
 
 def _info():
-    import subprocess
-
     import torch
 
     from . import runtime
@@ -41,14 +40,7 @@ def _info():
     for d in runtime.devices(platform):
         name = torch.cuda.get_device_name(d) if d.type == "cuda" else "host CPU"
         print(f"  {d}: {name}")
-    try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=30)
-        card = smi.stdout.strip() if smi.returncode == 0 else f"unavailable (rc {smi.returncode})"
-    except (OSError, subprocess.TimeoutExpired) as e:
-        card = f"unavailable ({e.__class__.__name__})"
-    print(f"card (name, power limit): {card}")
+    print(f"card (name, power limit): {runtime.card()}")
     try:
         nvcc = build._nvcc()
     except RuntimeError:
@@ -87,6 +79,10 @@ def main(argv=None):
     v.add_argument("-o", "--out", required=True)
 
     sub.add_parser("info", help="the card, devices and kernel toolchain")
+
+    b = sub.add_parser("bench", help="the headline benchmark: one JSON line, gated on the "
+                                     "kernels' invariants (scripts/bench.py; BENCH_* env)")
+    b.add_argument("--device", default="cuda", help="torch device (cuda|cpu)")
 
     args = ap.parse_args(argv)
 
@@ -132,6 +128,10 @@ def main(argv=None):
         print(f"wrote {args.out} ({(vox > 0).sum()} occupied voxels)")
     elif args.cmd == "info":
         _info()
+    elif args.cmd == "bench":
+        from .scripts import bench
+
+        bench.main(["--device", args.device])
 
 
 if __name__ == "__main__":

@@ -406,7 +406,8 @@ __device__ float ambient_occlusion(const Scene& S, V3f pos, V3f n) {
     V3f rp = fma3(sn, d, pos);
     SceneDist sd = distance_to_scene<K>(S, rp, sn, P.aoScale, __ldg(&S.aoTrunc[i]), true,
                                         intersects_box(P, rp, sn), false, kAoSamples);
-    ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp / d, 0.0f));
+    // / d as XLA:CPU compiles it: the product with 1/d
+    ao = ao * (1.0f - fmaxf((d - sd.dist) * P.aoAmp * (1.0f / d), 0.0f));
   }
   return ao;
 }
@@ -525,8 +526,11 @@ __device__ V3f pass_color(const Scene& S, int pid, int x, int y) {
   V3f forward = normalize3(
       {P.targetPos[0] - eye.x, P.targetPos[1] - eye.y, P.targetPos[2] - eye.z});
   V3f right = normalize3(cross3(forward, {P.up[0], P.up[1], P.up[2]}));
-  float vcx = px / (float)P.width * P.fov - P.fov * 0.5f;
-  float vcy = (py / (float)P.height * P.fov - P.fov * 0.5f) * (-P.invAspect);
+  // camera.view_coords: XLA:CPU's fma(px, fov * (1/w), -fov/2), its factors
+  // from the parameter block (computed in the kernel, they held registers
+  // across the march and K2 over the table spilled 16 B at 80 registers)
+  float vcx = fmaf(px, P.viewScale[0], -P.viewHalf);
+  float vcy = fmaf(py, P.viewScale[1], -P.viewHalf) * (-P.invAspect);
   V3f upv = cross3(right, forward);
   V3f ray_dir = normalize3(add3(add3(mul3(right, vcx), mul3(upv, vcy)), forward));
   V3f ray_pos = eye;

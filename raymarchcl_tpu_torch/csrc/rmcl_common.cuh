@@ -34,6 +34,7 @@ struct RmclParams {
   float invAspect, fov, maxDist, startDist, eps, aoAmp, groundY;
   float shadowBias, lightScatter, minLightAtt, exposure, dof, frameBlend;
   float fogPow, flareAmp, gamma;
+  float viewScale[2], viewHalf;  // camera.view_scales: fov * (1/width), fov * (1/height), fov / 2
   float lightPos[4][4], lightColor[4][4], matAlbedo[4][4], matR0[4], matSmooth[4];
 };
 

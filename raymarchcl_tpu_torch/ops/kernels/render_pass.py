@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..accel import Accel, brick_dims, row_words
-from ..camera import camera_ray_lookat
+from ..camera import camera_ray_lookat, view_scales
 from ..sampling import init_render_state
 from ..shade import ao_step_dist, ao_trunc_steps, scene_color
 from ..vecmath import fma
@@ -64,7 +64,7 @@ class RmclParams(ctypes.Structure):
         ("startDist", _f), ("eps", _f), ("aoAmp", _f), ("groundY", _f),
         ("shadowBias", _f), ("lightScatter", _f), ("minLightAtt", _f),
         ("exposure", _f), ("dof", _f), ("frameBlend", _f), ("fogPow", _f),
-        ("flareAmp", _f), ("gamma", _f),
+        ("flareAmp", _f), ("gamma", _f), ("viewScale", _f * 2), ("viewHalf", _f),
         ("lightPos", (_f * 4) * 4), ("lightColor", (_f * 4) * 4),
         ("matAlbedo", (_f * 4) * 4), ("matR0", _f * 4), ("matSmooth", _f * 4),
     ]
@@ -118,6 +118,8 @@ def make_params(opts, accel: Accel | None = None, pix_lo: int = 0,
         rows = src.numpy()
         for r in range(4):
             getattr(p, dst)[r][:] = [float(v) for v in rows[r]]
+    sx, sy, p.viewHalf = view_scales(opts)
+    p.viewScale[:] = [sx, sy]
     p.matR0[:] = [float(v) for v in opts.mat_r0.numpy()]
     p.matSmooth[:] = [float(v) for v in opts.mat_smoothness.numpy()]
     return p

@@ -116,7 +116,9 @@ def ambient_occlusion(vol, opts, table, pos: V3, normal: V3, active, accel=None)
         sd = distance_to_scene(vol, opts, fma3(sn, d, pos), sn, steps, act,
                                max_k=ao_trunc_steps(opts, steps, i),
                                want_material=False, accel=accel)
-        ao_new = ao * (1.0 - torch.clamp((d - sd["dist"]) * opts.aoAmp / d, min=0.0))
+        # / d as XLA:CPU compiles a division by a constant: times float32 1/d
+        inv_d = float(np.float32(1.0) / np.float32(d))
+        ao_new = ao * (1.0 - torch.clamp((d - sd["dist"]) * opts.aoAmp * inv_d, min=0.0))
         ao = torch.where(act, ao_new, ao)
     return ao
 

@@ -9,9 +9,17 @@ the contract the CUDA kernel (csrc/rmcl_common.cuh) follows op for op:
   `--fmad=false`, so both sides fuse exactly where this module says so:
   at the sites that feed a discontinuity (seeds, march sample positions,
   ray positions, dot products, bounce directions).
+* A division by a constant is a product with its float32 reciprocal, as
+  XLA:CPU compiles `x / c`, with the scalar factors multiplied first where
+  XLA multiplies them first (`camera.view_coords`, the AO factor of
+  `shade.ambient_occlusion`). No tensor is divided by a host scalar:
+  PyTorch divides on the CPU but multiplies by the reciprocal on a CUDA
+  device, so such a quotient would differ by an ulp between the plain
+  version on the card and its kernel.
 * `normalize` divides by `sqrt` (one IEEE rounding each). XLA:CPU's
-  `rsqrt` differs from `1/sqrt` by up to 2 ulp; that drift stays inside
-  the render tolerances.
+  `rsqrt` is an estimate specific to the host CPU, up to 2 ulp off
+  `1/sqrt`; the port does not copy it, so ray directions stay within 2 ulp
+  of the JAX package's, inside the render tolerances.
 """
 
 from __future__ import annotations

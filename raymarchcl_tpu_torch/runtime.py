@@ -11,6 +11,8 @@ CUDA card is the default, and asking for it without one raises.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -49,6 +51,36 @@ def max_device(platform=None) -> torch.device:
         return devs[0]
     sms = [torch.cuda.get_device_properties(d).multi_processor_count for d in devs]
     return devs[sms.index(max(sms))]
+
+
+def card(device=None) -> str:
+    """The name and power limit of `device`'s card as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them
+    (`NVIDIA H100 80GB HBM3, 700.00 W`); every card's, one line a card, when
+    `device` is None; 'cpu' for a CPU device; or why they could not be read.
+    A card set below its maximum power runs slower under load, so every
+    measurement carries it. The card is found by its UUID, so the line is
+    the card's own even where CUDA numbers the cards otherwise."""
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cpu":
+        return "cpu"
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({e.__class__.__name__})"
+    if smi.returncode != 0 or not smi.stdout.strip():
+        return f"unavailable (rc {smi.returncode})"
+    rows = [line.split(", ", 1) for line in smi.stdout.strip().splitlines()]
+    if dev is None:
+        return "\n".join(rest for _, rest in rows)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    uuid = str(getattr(torch.cuda.get_device_properties(index), "uuid", ""))
+    for smi_uuid, rest in rows:
+        if uuid and smi_uuid.removeprefix("GPU-") == uuid:
+            return rest
+    return rows[index][1] if index < len(rows) else f"unavailable (no card {index})"
 
 
 def build(verbose=False):

@@ -87,8 +87,7 @@ def main():
     if len(cards) < 2:
         print(f"multi_card: needs >= 2 cards, found {len(cards)}", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip().splitlines()
+    smi = runtime.card().splitlines()
     runtime.build()
     vol_np, res = api.default_volume(256)
     opts = render_options(width=512, height=512, iter=16, vres=list(res), mat="ao",

@@ -161,11 +161,13 @@ def test_cli_info(capsys):
     assert "card (name, power limit):" in out and "nvcc:" in out
 
 
-def test_cli_rejects_unknown_command():
+def test_cli_rejects_unknown_command(monkeypatch):
     with pytest.raises(SystemExit):
         cli(["frobnicate"])
-    with pytest.raises(SystemExit):
-        cli(["bench"])  # the JAX package's bench subcommand is not ported
+    # bench is ported (scripts/bench.py): like every render, on the card unless --device cpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli(["bench"])
 
 
 def test_runtime_devices(monkeypatch):
@@ -179,6 +181,28 @@ def test_runtime_devices(monkeypatch):
     for call in (runtime.max_device, runtime.devices, lambda: runtime.check_device("cuda")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_runtime_card_names_the_devices_card(monkeypatch):
+    """card(device) is that card's line of nvidia-smi, found by its UUID
+    (here the second card, listed first); card() is every card's; a CPU
+    device has no card."""
+    import subprocess
+    from types import SimpleNamespace
+
+    assert runtime.card("cpu") == "cpu"
+    smi = "GPU-bbbb, Card B, 350.00 W\nGPU-aaaa, Card A, 700.00 W\n"
+    monkeypatch.setattr(subprocess, "run",
+                        lambda *a, **k: SimpleNamespace(returncode=0, stdout=smi))
+    uuids = ["aaaa", "bbbb"]
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(uuid=uuids[i]))
+    assert runtime.card() == "Card B, 350.00 W\nCard A, 700.00 W"
+    assert runtime.card("cuda:0") == "Card A, 700.00 W"
+    assert runtime.card(torch.device("cuda", 1)) == "Card B, 350.00 W"
+    monkeypatch.setattr(subprocess, "run",
+                        lambda *a, **k: SimpleNamespace(returncode=9, stdout=""))
+    assert runtime.card("cuda:0") == "unavailable (rc 9)"
 
 
 def test_runtime_build_log_without_a_build(monkeypatch):

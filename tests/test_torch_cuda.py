@@ -582,3 +582,38 @@ def test_k2_cuda_tiles_bit_equal_one_launch(cuda_device, mat):
     assert k2.LAUNCHES == before + 3
     np.testing.assert_array_equal(argb_t, argb_1)
     assert acc_t.shape == (3702, 3) and torch.equal(acc_t[:3700], acc_1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["ao", "metal"])
+def test_bench_gate_holds_on_the_card(cuda_device, mat, tmp_path, monkeypatch):
+    """scripts/bench.check_invariants on a small bench frame (no digest
+    check: it is not the main path), and a run of the timed frames."""
+    from raymarchcl_tpu_torch import api
+    from raymarchcl_tpu_torch.scripts import bench
+
+    monkeypatch.setattr(api, "VOLUME_CACHE_DIR", str(tmp_path))
+    scene = bench.setup(64, 48, 4, 48, mat, True, cuda_device)
+    res = bench.check_invariants(scene, default=False)
+    assert res == {"accel_on_off": True, "chunked_vs_one_launch": True, "plain_64": True,
+                   "pack_bit_equal": True}
+    before = k2.LAUNCHES
+    out = bench.run(scene, 2, 2, res, "card")
+    assert k2.LAUNCHES - before == 3 * 2  # the warm-up and 2 frames, 2 launches each
+    assert out["invariants"] is True and len(out["samples"]) == 2
+
+
+@pytest.mark.cuda
+def test_runtime_card_finds_the_card_by_uuid(cuda_device):
+    """The card's UUID as torch reports it is one nvidia-smi lists, so
+    runtime.card(device) names the card that renders, not the first one."""
+    import subprocess
+
+    from raymarchcl_tpu_torch import runtime
+
+    uuid = str(torch.cuda.get_device_properties(cuda_device).uuid)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout.split()
+    assert f"GPU-{uuid}" in smi
+    line = runtime.card(cuda_device)
+    assert line in runtime.card().splitlines() and line.endswith(" W")

@@ -173,7 +173,7 @@ def run_shadows(vol, opts, table, state, recs, batch, accel):
 
 def run_probes(vol, opts, table, recs, batch, accel):
     """AO tasks (level, pixel, probe): one probe of shade.ambient_occlusion
-    each; returns its factor 1 - max((d - dist) * aoAmp / d, 0)."""
+    each; returns its factor 1 - max((d - dist) * aoAmp * (1/d), 0)."""
     lev, pix, probe = (torch.from_numpy(batch[:, i]) for i in range(3))
     pos, n = (_take(_stack(recs, key), lev, pix) for key in ("pos", "n"))
     steps = opts.maxVoxelIter // 2
@@ -186,7 +186,7 @@ def run_probes(vol, opts, table, recs, batch, accel):
     sd = march.distance_to_scene(vol, opts, fma3(sn, d, pos), sn, steps,
                                  torch.ones(len(lev), dtype=torch.bool), max_k_dyn=cap,
                                  want_material=False, accel=accel)
-    return 1.0 - torch.clamp((d - sd["dist"]) * opts.aoAmp / d, min=0.0)
+    return 1.0 - torch.clamp((d - sd["dist"]) * opts.aoAmp * (1.0 / d), min=0.0)
 
 
 def model_pass(vol, opts, table, accum, accel=None, seed=0, log=None):

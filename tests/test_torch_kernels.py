@@ -166,6 +166,10 @@ def test_params_values(small_scene):
     assert p.marchScale == float(np.float32(1 / 32)) and p.invNumLights == 1.0
     assert p.gamma == float(np.float32(1.5)) == float(opts.gamma)
     assert list(p.lightColor[0]) == [50.0, 50.0, 50.0, 0.0]
+    fov = np.float32(opts.fov)  # camera.view_coords' factors, float32 as the plain version's
+    assert list(p.viewScale) == [float(fov * (np.float32(1) / np.float32(8))),
+                                 float(fov * (np.float32(1) / np.float32(6)))]
+    assert p.viewHalf == float(fov * np.float32(0.5))
     assert (p.edge, p.brickShift, p.nbx, p.nby, p.rowWords) == (0, 0, 0, 0, 0)
     bricks = accel.build_accel(np.zeros(32 * 32 * 96, np.uint8), opts.voxelRes, 32, edge=16)
     p = k2.make_params(opts, bricks)

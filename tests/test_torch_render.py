@@ -225,3 +225,113 @@ def test_accumulation_is_sequential_blend(vol):
         acc = t_render.render_pass(v, opts.replace(time=times[i]), tables[i], acc)
     assert torch.equal(got, acc)
     assert float(got.abs().sum()) > 0
+
+
+# Pixel 3531 (x 31, y 35) of the 100x37 `ao` frame, pass 0, over the 256^3
+# gyroid: the one pixel whose AO seed one ulp of ray direction flipped. The
+# float that sampling.ao_seed truncates lies within 1e-3 of 1356 there.
+PIXEL_IDS = [3531, 3530, 3532]
+
+
+def _pixel_case():
+    kw = dict(width=100, height=37, iter=1, vres=[256] * 3, mat="ao",
+              eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
+    vol_np = generators.make_gyroid_volume({"vres": kw["vres"]})
+    table = np.array(js.make_mc_tables(16, seed=0)[0])
+    return (vol_np, table, j_render_options(**kw).replace(time=jnp.float32(0.0)),
+            render_options(**kw).replace(time=torch.tensor(0.0)))
+
+
+def _ao_seed_float(pos, t):
+    """The float sampling.ao_seed truncates (the port's contraction)."""
+    from raymarchcl_tpu_torch.ops.vecmath import fma
+
+    return (fma(pos.z, 2945.87, fma(pos.x, 3183.75, pos.y * 1831.42)) + t * 2671.918).numpy()
+
+
+def test_pixel_3531_view_coordinates_decide_its_ao_seed():
+    """The port's view coordinates follow XLA:CPU's compiled order
+    (camera.view_coords), bit-equal to the JAX package's on the whole frame.
+    At pixel 3531 the expression as written, px / w * fov - fov / 2, moves
+    the ray one ulp and the AO-seed float across 1356; in XLA's order the
+    port lands on JAX's side, and its colour is JAX's. The ray directions
+    still differ by up to 2 ulp where XLA:CPU's rsqrt estimate differs from
+    1/sqrt, which the port does not copy."""
+    import jax
+
+    from raymarchcl_tpu.ops import camera as j_camera
+    from raymarchcl_tpu.ops import march as j_march
+    from raymarchcl_tpu.ops import shade as j_shade
+    from raymarchcl_tpu_torch.ops import march as t_march
+    from raymarchcl_tpu_torch.ops.camera import view_coords
+    from raymarchcl_tpu_torch.ops.vecmath import V3, cross, normalize
+
+    vol_np, table, jo, to = _pixel_case()
+
+    @jax.jit
+    def j_view(opts, table_t, ids):  # raymarchcl_tpu/ops/camera.py:26-27
+        st = js.init_render_state(opts, table_t, ids)
+        w, h = opts.resolution
+        return (st["px"] / w * opts.fov - opts.fov * 0.5,
+                (st["py"] / h * opts.fov - opts.fov * 0.5) * (-opts.invAspect))
+
+    @jax.jit
+    def j_pixel(vol, opts, table_t, ids):
+        st = js.init_render_state(opts, table_t, ids)
+        pos, d = j_camera.camera_ray_lookat(opts, st)
+        isec = j_march.raymarch(vol, opts, pos, d, opts.maxDist, opts.maxIter, smooth=True,
+                                active=jnp.ones(ids.shape, bool))
+        p = isec["pos"]
+        s = p.x * 3183.75 + p.y * 1831.42 + p.z * 2945.87 + opts.time * 2671.918
+        col = j_shade.scene_color(vol, opts, table_t, st, pos, d)
+        return (st["px"], st["py"], st["mc_normal"].to_array(), d.to_array(),
+                isec["distance"], isec["object_id"], s, col.to_array())
+
+    table_t = js.transpose_table(jnp.asarray(table))
+    n = to.num_pixels
+    st_all = t_sampling.init_render_state(to, torch.from_numpy(table), torch.arange(n))
+    got = [x.numpy() for x in view_coords(to, st_all)]
+    want = [np.asarray(x) for x in j_view(jo, table_t, jnp.arange(n, dtype=jnp.int32))]
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))  # every pixel, both axes
+    w, h = to.resolution
+    written = (st_all["px"] / w * to.fov - to.fov * 0.5).numpy()
+    assert (written != want[0]).mean() > 0.1  # the expression as written is not XLA's
+
+    jv = [np.asarray(x) for x in j_pixel(jnp.asarray(vol_np), jo, table_t,
+                                          jnp.asarray(PIXEL_IDS, jnp.int32))]
+    j_px, j_py, j_mcn, j_dir, j_dist, j_id, j_s, j_col = jv
+    vol = torch.from_numpy(vol_np)
+    tab = torch.from_numpy(table)
+    st = t_sampling.init_render_state(to, tab, torch.tensor(PIXEL_IDS))
+    eye, d = camera_ray_lookat(to, st)
+    assert np.array_equal(st["px"].numpy(), j_px) and np.array_equal(st["py"].numpy(), j_py)
+    assert np.array_equal(st["mc_normal"].to_array().numpy(), j_mcn)
+    ulps = np.abs(d.to_array().numpy().view(np.int32).astype(np.int64)
+                  - j_dir.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2, ulps
+
+    def march(ray_dir):
+        act = torch.ones(3, dtype=torch.bool)
+        isec = t_march.raymarch(vol, to, eye, ray_dir, to.maxDist, to.maxIter, act)
+        col = scene_color(vol, to, tab, st, eye, ray_dir).to_array().numpy()
+        return isec, _ao_seed_float(isec["pos"], to.time), col
+
+    isec, s, col = march(d)
+    assert np.array_equal(isec["object_id"].numpy(), j_id)
+    np.testing.assert_allclose(isec["distance"].numpy(), j_dist, rtol=0, atol=1e-6)
+    assert 1355.99 < j_s[0] < 1356 and 1355.99 < s[0] < 1356  # both truncate to 1355
+    np.testing.assert_allclose(col, j_col, rtol=0, atol=1e-6)
+    # the written order: one ulp of the view coordinate, the other side of 1356
+    t, u = to.targetPos, to.up
+    fwd = normalize(V3(t[0] - eye.x, t[1] - eye.y, t[2] - eye.z))
+    right = normalize(cross(fwd, V3(u[0], u[1], u[2])))
+    w, h = to.resolution
+    vcx = st["px"] / w * to.fov - to.fov * 0.5
+    vcy = (st["py"] / h * to.fov - to.fov * 0.5) * (-to.invAspect)
+    _, s_written, col_written = march(normalize(right * vcx + cross(right, fwd) * vcy + fwd))
+    assert 1356 < s_written[0] < 1356.01
+    assert np.abs(col_written[0] - j_col[0]).max() > 0.03  # the seed moved every AO probe
+    # JAX's own ray directions fed to the port give JAX's colour
+    _, s_j, col_j = march(V3(*(torch.from_numpy(j_dir[:, c].copy()) for c in range(3))))
+    assert s_j[0] < 1356
+    np.testing.assert_allclose(col_j, j_col, rtol=0, atol=1e-6)
