@@ -47,7 +47,12 @@ raymarchcl_tpu_torch bench`, in a subprocess (its gate must hold, with the
 main path's digests; five samples; one packing K2 launch a timed frame),
 scripts/run_configs.py's five BASELINE configs at full spp (configs 1 and 2
 also held to the plain version on their first pass), scripts/bench_anim.py
-with 3 steady frames and scripts/preview_quality.py. The main path's, the
+with 3 steady frames and scripts/preview_quality.py. Then the card's
+frames are held to the JAX package's at full size
+(raymarchcl_tpu_torch/refs/: its compiled render_image on the CPU): the
+main path's, configs 1-4 and the `metal` frame at 2 spp, each image within
+the goldens' thresholds and its kept accum pixels within the port's
+criterion, at most 0.05% off by rel > 1e-3. The main path's, the
 metal frame's and configs 1-5's accum and image must keep their sha256
 (DIGESTS, raymarchcl_tpu_torch/scripts/digests.py). One line per phase; the
 second-to-last line is a JSON object with one entry per kernel, the last
@@ -111,6 +116,12 @@ MESH_VOLUMES = {
 CAM = dict(eyepos=(135, 2.25, 0.35), targetpos=[0, -0.4, 0])  # the main path's orbit camera
 CAM3 = dict(eyepos=(120, 2.0, 0.5), targetpos=[0, 0, 0])  # config 3's (run_configs.py:89)
 SHOWCASE = os.path.join(REPO, "docs", "showcase-config5-100spp.png")
+REFS_DIR = os.path.join(REPO, "raymarchcl_tpu_torch", "refs")  # the JAX package's frames
+# the share of stored accum pixels a reference frame may have off by rel >
+# 1e-3 (tests/test_torch_fullsize.py's MAX_OFF)
+REF_MAX_OFF = 0.0005
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -254,6 +265,73 @@ def timed_frames(render_mod, vol, opts, tables, acc, n=3):
         torch.cuda.synchronize()
         frames.append(time.perf_counter() - t0)
     return frames, argb, accum
+
+
+def reference_phase(dev, volumes, same_as):
+    """The card's frames against the JAX package's at full size:
+    raymarchcl_tpu_torch/refs/ holds whole frames of the JAX package's
+    compiled render_image on the CPU (tests/test_torch_fullsize.py renders
+    them). Each is rendered here from its manifest entry through
+    render_image over the brick table: the main path's frame, configs 1-3
+    at their spp, the `metal` frame and config 4 at the 2 spp of their
+    references. `volumes` maps the manifest's volume names to (flat uint8
+    numpy volume, edge); `same_as` maps a reference to an accum that its
+    frame must equal (the phase's own frame of it). The image against the
+    stored one (a lossless WebP), the kept accum pixels (a band of rows and
+    every 64th pixel) against the stored float32 accum; one line a
+    frame."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from raymarchcl_tpu_torch.convert import volume_from_numpy
+    from raymarchcl_tpu_torch.io import imageio
+    from raymarchcl_tpu_torch.ops import accel as accel_mod
+    from raymarchcl_tpu_torch.ops import render as render_mod
+    from raymarchcl_tpu_torch.ops.sampling import make_mc_tables
+    from raymarchcl_tpu_torch.options import render_options
+
+    with open(os.path.join(REFS_DIR, "manifest.json")) as f:
+        refs = json.load(f)
+    for name, ref in refs.items():
+        for fname, digest in ref["files"].items():
+            with open(os.path.join(REFS_DIR, fname), "rb") as f:
+                require(hashlib.sha256(f.read()).hexdigest() == digest,
+                        f"reference {fname}: sha256 differs from its manifest's")
+        vol_r, vres_r = volumes[ref["volume"]]
+        require(vres_r == ref["vres"], f"reference {name}: volume {ref['volume']} is {vres_r}^3")
+        v = volume_from_numpy(vol_r, dev)
+        cam_r = dict(eyepos=(ref["cam"]["theta"], ref["cam"]["dist"], ref["cam"]["y"]),
+                     targetpos=ref["cam"]["target"])
+        o = render_options(vres=[vres_r] * 3, iter=ref["spp"], **camera(cam_r), **ref["opts"])
+        b = accel_mod.build_accel(v, o.voxelRes, o.isoVal)
+        argb, acc = render_mod.render_image(v, o, make_mc_tables(ref["spp"], seed=0, device=dev),
+                                            accel=b)
+        if name in same_as:
+            require(torch.equal(acc, same_as[name]),
+                    f"reference {name}: the frame differs from the phase's own")
+        want = np.asarray(Image.open(os.path.join(REFS_DIR, f"{name}.webp")).convert("RGB"))
+        diff = np.abs(imageio.argb_to_rgba(argb)[..., :3].astype(np.int32) - want.astype(np.int32))
+        mad, off8 = float(diff.mean()), float((diff > 8).mean())
+        with np.load(os.path.join(REFS_DIR, f"{name}.npz")) as z:
+            ids = np.concatenate([z["band_ids"], z["sample_ids"]])
+            want_acc = torch.from_numpy(np.concatenate([z["band"], z["sample"]])).to(dev)
+        got = acc[torch.from_numpy(ids).to(dev).long()]
+        within = float(torch.isclose(got, want_acc, **TOL).all(dim=1).float().mean())
+        err = (got - want_acc).abs()
+        off_rel = float(((err / want_acc.abs().clamp(min=1e-30)).amax(dim=1) > 1e-3)
+                        .float().mean())
+        err = err.amax(dim=1)
+        worst = int(err.argmax())
+        log(f"reference {name} ({o.width}x{o.height}, {ref['spp']} spp, {ref['opts']['mat']}, "
+            f"{ref['volume']}) on {dev.type} vs the JAX package's render_image: image mad "
+            f"{mad:.6f} (< 0.15), frac_off8 {off8:.6%} (< 0.5%); {len(ids)} stored accum px: "
+            f"{within:.6f} within rtol=atol=5e-3 (>= 0.995), {off_rel:.6%} off by rel > 1e-3 "
+            f"(<= {REF_MAX_OFF:.2%}); worst pixel {int(ids[worst])} off by "
+            f"{float(err[worst]):.6g}")
+        require(mad < 0.15 and off8 < 0.005, f"reference {name}: golden thresholds missed")
+        require(within >= MIN_PIXELS_OK and off_rel <= REF_MAX_OFF,
+                f"reference {name}: stored accum agreement missed")
 
 
 def main():
@@ -753,7 +831,7 @@ def main():
 
     # -- 8b. BASELINE configs 3 and 4 at full size (512^2, 16 spp; the
     # main path's MC tables, seed 0, as scripts/run_configs.py:32 takes them)
-    configs = {}
+    configs, accum_8b = {}, {}
     for key, vol_c, vres_c, mat_c, cam_c in (("config 3", vol3, 64, "ao", CAM3),
                                              ("config 4", vol4, 128, "metal", CAM)):
         v = volume_from_numpy(vol_c, dev)
@@ -786,6 +864,7 @@ def main():
         else:
             k2_err = max(k2_err, agree_c[2])
         dg = frame_digests(acc_c, argb_c)
+        accum_8b[key] = acc_c
         lanes_c = k2.count_lanes(v, o, tables, times, torch.zeros_like(acc_c), b)
         configs[key] = dict(frames_s=fr, frame_s=sorted(fr)[1], kernel_ms=k_ms, launches=cnt,
                             accum_sha256=dg[0], argb_sha256=dg[1], colours=n_colors_c,
@@ -1208,6 +1287,13 @@ def main():
     entry.update(bench_anim=dict(anim, launches=cnt_banim),
                  preview_quality=dict(pq, launches=cnt_pq), phase_s=time.perf_counter() - t_phase)
     log(f"entry-point phase: {entry['phase_s']:.1f} s")
+
+    # -- 8h. the card's frames against the JAX package's at full size --------
+    t_phase = time.perf_counter()
+    reference_phase(dev, {"gyroid": (vol_np, 256), "voxelize_ks(64, 1)": (vol3, 64),
+                          "voxelize_scatter(128, seed=3)": (vol4, 128)},
+                    {"ao-512": accum, "config-3": accum_8b["config 3"]})
+    log(f"reference phase: {time.perf_counter() - t_phase:.1f} s")
 
     # -- 9. the kernels line ---------------------------------------------------
     # K1 on its own reads accum and writes the image; fused, it writes the
