@@ -83,6 +83,7 @@
 // fifth of the lanes), and work units of one pass of one tile (a warp that
 // keeps its tile for all passes reuses the tile's bricks in L1).
 #include <algorithm>
+#include <atomic>
 #include <climits>
 
 #include "rmcl_common.cuh"
@@ -646,20 +647,53 @@ render_passes_kernel(const __grid_constant__ RmclParams P, const RangeWork W,
   }
 }
 
+// An instance's residency on a device: what the launch sizes its grid from
+// (blocks per SM, the SMs) and what rmcl_render_occupancy reports.
+struct Occupancy {
+  int per_sm, sms, regs, local_bytes;
+};
+
+constexpr int kMaxDevices = 64;
+
+// Asked of the runtime once per instance and device, then read from the
+// cache; a fill that races another writes the same values.
+template <class K>
+static cudaError_t occupancy(Occupancy* out) {
+  static Occupancy cache[kMaxDevices];
+  static std::atomic<bool> known[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!known[dev].load(std::memory_order_acquire)) {
+    auto kernel = render_passes_kernel<K>;
+    Occupancy o{};
+    cudaFuncAttributes fa;
+    e = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, kernel, kThreads, 0);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    o.regs = fa.numRegs;
+    o.local_bytes = (int)fa.localSizeBytes;
+    cache[dev] = o;
+    known[dev].store(true, std::memory_order_release);
+  }
+  *out = cache[dev];
+  return cudaSuccess;
+}
+
 template <class K>
 static int launch(const RmclParams* params, const uint8_t* vol, const float* tables,
                   const float* times, int npass, const int* rows, float* accum, uint32_t* argb,
                   int* next_tile, unsigned long long* counts, cudaStream_t stream) {
   auto kernel = render_passes_kernel<K>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                                           kThreads, 0);
+  Occupancy occ;
+  cudaError_t e = occupancy<K>(&occ);
   if (e != cudaSuccess) return (int)e;
   const RangeWork work = range_work(*params);
   int warps = kThreads / 32;
-  int blocks = std::min(std::max(per_sm, 1) * sms, (work.items + warps - 1) / warps);
+  int blocks = std::min(std::max(occ.per_sm, 1) * occ.sms, (work.items + warps - 1) / warps);
   // the AO probe table follows the pass times (render_pass.launch_block)
   const float* ao_d = times + npass;
   const int* ao_trunc = reinterpret_cast<const int*>(ao_d + params->aoIter + 1);
@@ -709,6 +743,22 @@ extern "C" int rmcl_render_passes(const RmclParams* params, const uint8_t* vol,
                           counts, stream);
   return dispatch<false>(params, vol, tables, times, npass, rows, accum, argb, next_tile,
                          counts, stream);
+}
+
+// The residency on the current device of the brick-table instance, K2c's
+// with reflective != 0 else K2's, in out[0..3]: blocks per SM, threads per
+// block, registers per thread, local (spill) bytes per thread
+// (render_pass.occupancy).
+extern "C" int rmcl_render_occupancy(int reflective, int* out) {
+  Occupancy o;
+  cudaError_t e = reflective ? occupancy<Build<true, false, true>>(&o)
+                             : occupancy<Build<true, false, false>>(&o);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = o.per_sm;
+  out[1] = kThreads;
+  out[2] = o.regs;
+  out[3] = o.local_bytes;
+  return 0;
 }
 
 // sizeof(RmclParams), which the loader holds to its ctypes mirror

@@ -126,6 +126,8 @@ def library() -> ctypes.CDLL:
             fn.restype = i32
         lib.rmcl_error_string.argtypes = [i32]
         lib.rmcl_error_string.restype = ctypes.c_char_p
+        lib.rmcl_render_occupancy.argtypes = [i32, vp]
+        lib.rmcl_render_occupancy.restype = i32
         lib.rmcl_params_size.argtypes = []
         lib.rmcl_params_size.restype = i32
         from .render_pass import RmclParams

@@ -26,6 +26,7 @@ from ..camera import camera_ray_lookat, view_scales
 from ..sampling import init_render_state
 from ..shade import ao_step_dist, ao_trunc_steps, scene_color
 from ..vecmath import fma
+from ...utils.metrics import span
 from . import build
 from .tonemap import tonemap_pack_plain
 
@@ -215,19 +216,23 @@ def _launch(vol, opts, tables, times, accum, accel, counts, argb=None, pix_lo=0,
     if tables.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     global LAUNCHES, PACKS, REFLECTIVE_LAUNCHES
-    params = make_params(opts, accel, pix_lo, pix_count)
-    # pinned and non-blocking: a pageable copy would wait for the stream
-    block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
-    next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
+    with span("rmcl.k2.params"):
+        params = make_params(opts, accel, pix_lo, pix_count)
+    with span("rmcl.k2.block"):
+        # pinned and non-blocking: a pageable copy would wait for the stream
+        block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
+        next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
     rows = None if accel is None else accel.rows.data_ptr()
-    lib = build.library()
-    with torch.cuda.device(accum.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rmcl_render_passes(ctypes.byref(params), vol.data_ptr(), tables.data_ptr(),
-                                    block_d.data_ptr(), tables.shape[0], rows,
-                                    accum.data_ptr(), None if argb is None else argb.data_ptr(),
-                                    next_tile.data_ptr(),
-                                    None if counts is None else counts.data_ptr(), stream)
+    with span("rmcl.k2.launch"):
+        lib = build.library()
+        with torch.cuda.device(accum.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.rmcl_render_passes(ctypes.byref(params), vol.data_ptr(), tables.data_ptr(),
+                                        block_d.data_ptr(), tables.shape[0], rows,
+                                        accum.data_ptr(),
+                                        None if argb is None else argb.data_ptr(),
+                                        next_tile.data_ptr(),
+                                        None if counts is None else counts.data_ptr(), stream)
     build.check(rc, "rmcl_render_passes")
     LAUNCHES += 1
     if opts.reflectIter > 0:
@@ -268,6 +273,24 @@ def render_pass(vol, opts, table, accum, accel: Accel | None = None,
     returns accum. The one-pass call of `render_passes`."""
     return render_passes(vol, opts, table[None], opts.time.reshape(1), accum, accel, argb,
                          pix_lo, pix_count)
+
+
+def occupancy(reflective: bool, device=None) -> dict | None:
+    """The residency of the render-pass kernel's brick-table instance (K2c's
+    with `reflective`, else K2's) on a CUDA device (default the current
+    one), as the launch sizes its grid from it: blocks and warps resident
+    per SM, threads per block, registers and local (spill) bytes per
+    thread. None without CUDA."""
+    if not torch.cuda.is_available():
+        return None
+    out = (ctypes.c_int * 4)()
+    lib = build.library()
+    with torch.cuda.device(device):
+        build.check(lib.rmcl_render_occupancy(int(bool(reflective)), out),
+                    "rmcl_render_occupancy")
+    blocks, threads, regs, local = out
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "threads_per_block": threads, "registers": regs, "local_bytes": local}
 
 
 def count_lanes(vol, opts, tables, times, accum, accel: Accel) -> dict:

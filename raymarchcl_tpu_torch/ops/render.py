@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.metrics import span
 from .kernels import tonemap as k_tonemap
 from .kernels.render_pass import render_pass, render_passes  # noqa: F401  (blend in place)
 from .kernels.tonemap import tonemap  # noqa: F401  (re-export)
@@ -47,12 +48,14 @@ def render_image(vol, opts, mc_tables, times=None, accum=None, accel=None):
     (N, 3) float32 tensor). `accum` may be passed back in to continue
     refining (core.clj:194-208).
     """
-    n_passes = mc_tables.shape[0]
-    if times is None:
-        times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
-    if accum is None:
-        accum = torch.zeros((opts.num_pixels, 3), dtype=torch.float32, device=vol.device)
-    argb = torch.empty(opts.num_pixels, dtype=torch.int32, device=accum.device)
-    render_passes(vol, opts, mc_tables, times, accum, accel, argb)
-    w, h = opts.resolution
-    return argb.cpu().numpy().view(np.uint32).reshape(h, w), accum
+    with span("rmcl.render_image"):
+        n_passes = mc_tables.shape[0]
+        if times is None:
+            times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
+        if accum is None:
+            accum = torch.zeros((opts.num_pixels, 3), dtype=torch.float32, device=vol.device)
+        argb = torch.empty(opts.num_pixels, dtype=torch.int32, device=accum.device)
+        render_passes(vol, opts, mc_tables, times, accum, accel, argb)
+        with span("rmcl.readback"):
+            w, h = opts.resolution
+            return argb.cpu().numpy().view(np.uint32).reshape(h, w), accum

@@ -34,10 +34,18 @@ from ..convert import accum_on, tables_on, volume_on
 from ..ops import render as render_mod
 from ..ops.accel import Accel
 from ..ops.kernels.render_pass import pass_times
+from ..utils.metrics import span
 from . import distributed
 
 AXIS = "tiles"
 PASS_AXIS = "passes"
+
+# Bytes the tiled and pass-sharded entries moved to or from a device other
+# than their mesh's home (the replicas; the accum and image tiles out and
+# back; the pass shards' parts), and the calls of those entries. The
+# collectives of a process group are not counted.
+COPIED_BYTES = 0
+CALLS = 0
 
 
 @dataclass(frozen=True)
@@ -127,16 +135,20 @@ def make_mesh2d(n_spp, n_tiles, devices=None) -> Mesh:
 class _Replicas:
     """The frame's volume, MC tables and brick table on each device that
     renders a shard, copied there once a call (no copy on their own
-    device)."""
+    device); copies to a device other than `home` count in COPIED_BYTES."""
 
-    def __init__(self, vol, tables, accel):
-        self._src, self._on = (vol, tables, accel), {}
+    def __init__(self, vol, tables, accel, home):
+        self._src, self._home, self._on = (vol, tables, accel), home, {}
 
     def on(self, dev):
+        global COPIED_BYTES
         if dev not in self._on:
             vol, tables, accel = self._src
             self._on[dev] = (volume_on(vol, dev), tables_on(tables, dev),
                              None if accel is None else Accel(accel.rows.to(dev), accel.edge))
+            if dev != self._home:
+                COPIED_BYTES += vol.nbytes + tables.nbytes + (0 if accel is None
+                                                              else accel.rows.nbytes)
         return self._on[dev]
 
 
@@ -157,8 +169,9 @@ def _start_accum(accum, rows, home):
 
 
 def _host_image(opts, argb):
-    w, h = opts.resolution
-    return argb[: opts.num_pixels].cpu().numpy().view(np.uint32).reshape(h, w)
+    with span("rmcl.readback"):
+        w, h = opts.resolution
+        return argb[: opts.num_pixels].cpu().numpy().view(np.uint32).reshape(h, w)
 
 
 def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, accel=None):
@@ -171,30 +184,39 @@ def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, 
     mesh's home device), n_pad = n * blk; feed accum back in to refine
     progressively. An accum passed in on the home device is updated in
     place."""
-    mesh = make_mesh() if mesh is None else mesh
-    n_pix = opts.num_pixels
-    blk = -(-n_pix // mesh.size)
-    times = _times(times, mc_tables.shape[0])
-    accum = _start_accum(accum, blk * mesh.size, mesh.home)
-    argb = torch.empty(blk * mesh.size, dtype=torch.int32, device=mesh.home)
-    replicas = _Replicas(vol, mc_tables, accel)
-    done = []
-    for t in mesh.local_entries():
-        dev, lo = mesh.devices[t], t * blk
-        acc_t, argb_t = accum[lo:lo + blk].to(dev), argb[lo:lo + blk].to(dev)
-        v, tabs, bricks = replicas.on(dev)
-        render_mod.render_passes(v, opts, tabs, times, acc_t, bricks, argb_t, pix_lo=lo,
-                                 pix_count=blk)
-        done.append((lo, acc_t, argb_t))
-    for lo, acc_t, argb_t in done:  # tiles rendered off the home device come back
-        if acc_t.device != mesh.home:
-            accum[lo:lo + blk].copy_(acc_t)
-            argb[lo:lo + blk].copy_(argb_t)
-    if mesh.ranks is not None:
-        (lo, acc_t, argb_t), = done
-        accum = distributed.all_gather_rows(accum[lo:lo + blk])
-        argb = distributed.all_gather_rows(argb[lo:lo + blk])
-    return _host_image(opts, argb), accum
+    global CALLS, COPIED_BYTES
+    with span("rmcl.render_image_tiled"):
+        CALLS += 1
+        mesh = make_mesh() if mesh is None else mesh
+        n_pix = opts.num_pixels
+        blk = -(-n_pix // mesh.size)
+        times = _times(times, mc_tables.shape[0])
+        accum = _start_accum(accum, blk * mesh.size, mesh.home)
+        argb = torch.empty(blk * mesh.size, dtype=torch.int32, device=mesh.home)
+        replicas = _Replicas(vol, mc_tables, accel, mesh.home)
+        done = []
+        for t in mesh.local_entries():
+            dev, lo = mesh.devices[t], t * blk
+            with span("rmcl.tiling.tile"):
+                with span("rmcl.tiling.inputs"):
+                    acc_t, argb_t = accum[lo:lo + blk].to(dev), argb[lo:lo + blk].to(dev)
+                    v, tabs, bricks = replicas.on(dev)
+                if dev != mesh.home:
+                    COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
+                render_mod.render_passes(v, opts, tabs, times, acc_t, bricks, argb_t,
+                                         pix_lo=lo, pix_count=blk)
+            done.append((lo, acc_t, argb_t))
+        with span("rmcl.tiling.gather"):
+            for lo, acc_t, argb_t in done:  # tiles rendered off the home device come back
+                if acc_t.device != mesh.home:
+                    accum[lo:lo + blk].copy_(acc_t)
+                    argb[lo:lo + blk].copy_(argb_t)
+                    COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
+            if mesh.ranks is not None:
+                (lo, acc_t, argb_t), = done
+                accum = distributed.all_gather_rows(accum[lo:lo + blk])
+                argb = distributed.all_gather_rows(argb[lo:lo + blk])
+        return _host_image(opts, argb), accum
 
 
 def _pass_sharded(vol, opts, mc_tables, times, accum, mesh, accel):
@@ -206,6 +228,8 @@ def _pass_sharded(vol, opts, mc_tables, times, accum, mesh, accel):
     JAX package computes it) before the sum, and an incoming accum survives
     all n_passes blends. The image is packed by K1 alone. Returns (argb
     (H, W), accum (n_pad, 3))."""
+    global CALLS, COPIED_BYTES
+    CALLS += 1
     n_sp, n_tiles = mesh.dims if len(mesh.dims) == 2 else (mesh.size, 1)
     n_passes = mc_tables.shape[0]
     if n_passes % n_sp != 0:
@@ -223,18 +247,24 @@ def _pass_sharded(vol, opts, mc_tables, times, accum, mesh, accel):
         return float(torch.pow(keep, torch.tensor(float(e), dtype=torch.float32)))
 
     total = torch.zeros_like(accum)
-    replicas = _Replicas(vol, mc_tables, accel)
+    replicas = _Replicas(vol, mc_tables, accel, mesh.home)
     for i in mesh.local_entries():
         k, t = divmod(i, n_tiles)
         dev = mesh.devices[i]
-        v, tabs, bricks = replicas.on(dev)
-        part = torch.zeros((blk, 3), dtype=torch.float32, device=dev)
-        ps = slice(k * blk_p, (k + 1) * blk_p)
-        render_mod.render_passes(v, opts, tabs[ps], times[ps], part, bricks, pix_lo=t * blk,
-                                 pix_count=blk)
-        total[t * blk:(t + 1) * blk] += (part * weight(blk_p * (n_sp - 1 - k))).to(mesh.home)
+        with span("rmcl.tiling.tile"):
+            with span("rmcl.tiling.inputs"):
+                v, tabs, bricks = replicas.on(dev)
+                part = torch.zeros((blk, 3), dtype=torch.float32, device=dev)
+            ps = slice(k * blk_p, (k + 1) * blk_p)
+            render_mod.render_passes(v, opts, tabs[ps], times[ps], part, bricks,
+                                     pix_lo=t * blk, pix_count=blk)
+        with span("rmcl.tiling.gather"):
+            total[t * blk:(t + 1) * blk] += (part * weight(blk_p * (n_sp - 1 - k))).to(mesh.home)
+            if dev != mesh.home:
+                COPIED_BYTES += part.nbytes
     if mesh.ranks is not None:
-        distributed.all_reduce_sum(total)
+        with span("rmcl.tiling.gather"):
+            distributed.all_reduce_sum(total)
     total += accum * weight(n_passes)
     return _host_image(opts, render_mod.pack_argb(opts, total)), total
 

@@ -2,18 +2,21 @@
 
 Counterpart of `raymarchcl_tpu/utils/metrics.py`. The reference's
 instrumentation is `(time ...)` wrappers and progress prns
-(core.clj:133/171/175/191/203, SURVEY.md §5). Here: a monotonic Timer, a
-ray-throughput model (primary + the secondary-ray budget from the
-reference's cost model), and structured per-frame reports.
+(core.clj:133/171/175/191/203, SURVEY.md §5). Here: a monotonic Timer, the
+port's profiler spans (`span`), a ray-throughput model (primary + the
+secondary-ray budget from the reference's cost model), and structured
+per-frame reports.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from dataclasses import dataclass, field
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.camera import camera_ray_lookat
 from ..ops.march import raymarch
@@ -30,6 +33,20 @@ class Timer:
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self.t0
         return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span of the port, named `rmcl.<layer>.<step>`: a
+    `torch.profiler.record_function` while a profiler records, so that it
+    lands in the profiler's trace on the clock of the device's events, and
+    otherwise a shared null context, which costs one check of the
+    profiler's state (an ungated record_function costs some 10 us)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 def primary_rays(opts, spp=None):

@@ -1,0 +1,9 @@
+"""Resident warps per SM of K2c's brick-table instance over the most an SM
+holds, in % (render_pass.occupancy(True), the query the launch sizes its
+grid from). Program counter."""
+
+from rmcl_bench.program import occupancy_pct
+
+
+def read(ctx):
+    return occupancy_pct(ctx, reflective=True)
