@@ -194,26 +194,30 @@ def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, 
         accum = _start_accum(accum, blk * mesh.size, mesh.home)
         argb = torch.empty(blk * mesh.size, dtype=torch.int32, device=mesh.home)
         replicas = _Replicas(vol, mc_tables, accel, mesh.home)
-        done = []
+        # Every band's inputs go to its device before any band launches: a
+        # cross-card copy is queued on the source card's current stream, so
+        # a copy made after the home band's launch would wait for its
+        # kernel, and that band's device with it.
+        staged = []
         for t in mesh.local_entries():
             dev, lo = mesh.devices[t], t * blk
+            with span("rmcl.tiling.inputs"):
+                acc_t, argb_t = accum[lo:lo + blk].to(dev), argb[lo:lo + blk].to(dev)
+                staged.append((lo, acc_t, argb_t, replicas.on(dev)))
+            if dev != mesh.home:
+                COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
+        for lo, acc_t, argb_t, (v, tabs, bricks) in staged:
             with span("rmcl.tiling.tile"):
-                with span("rmcl.tiling.inputs"):
-                    acc_t, argb_t = accum[lo:lo + blk].to(dev), argb[lo:lo + blk].to(dev)
-                    v, tabs, bricks = replicas.on(dev)
-                if dev != mesh.home:
-                    COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
                 render_mod.render_passes(v, opts, tabs, times, acc_t, bricks, argb_t,
                                          pix_lo=lo, pix_count=blk)
-            done.append((lo, acc_t, argb_t))
         with span("rmcl.tiling.gather"):
-            for lo, acc_t, argb_t in done:  # tiles rendered off the home device come back
+            for lo, acc_t, argb_t, _ in staged:  # tiles rendered off the home device come back
                 if acc_t.device != mesh.home:
                     accum[lo:lo + blk].copy_(acc_t)
                     argb[lo:lo + blk].copy_(argb_t)
                     COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
             if mesh.ranks is not None:
-                (lo, acc_t, argb_t), = done
+                (lo, *_), = staged
                 accum = distributed.all_gather_rows(accum[lo:lo + blk])
                 argb = distributed.all_gather_rows(argb[lo:lo + blk])
         return _host_image(opts, argb), accum

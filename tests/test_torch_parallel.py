@@ -117,6 +117,44 @@ def test_tiled_progressive_accum(scene):
         tiling.render_image_tiled(vol, opts, tables, accum=accum[:-8], mesh=mesh)
 
 
+def test_tiled_stages_every_band_before_any_launch(scene, monkeypatch):
+    """Every band's replicas and accum and image tiles are taken before the
+    first band launches (on cards, a copy made after a launch queues
+    behind that band's kernel on the home card's stream), and the frame
+    stays the single-device render's."""
+    vol, _, tables = scene
+    opts, tables = _opts(width=8, height=4, iter=1), tables[:1]
+    argb_1, accum_1 = render.render_image(vol, opts, tables)
+    mesh = _cpus(4)
+    blk = opts.num_pixels // mesh.size
+    events = []
+    real_on, real_to = tiling._Replicas.on, torch.Tensor.to
+    real_passes = tiling.render_mod.render_passes
+
+    def on(self, dev):
+        events.append("replicas")
+        return real_on(self, dev)
+
+    def to(self, *args, **kwargs):
+        if self.dim() and self.shape[0] == blk and args and isinstance(args[0], torch.device):
+            events.append("tile")
+        return real_to(self, *args, **kwargs)
+
+    def render_passes(*args, **kwargs):
+        events.append("launch")
+        return real_passes(*args, **kwargs)
+
+    monkeypatch.setattr(tiling._Replicas, "on", on)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    monkeypatch.setattr(tiling.render_mod, "render_passes", render_passes)
+    argb_t, accum_t = tiling.render_image_tiled(vol, opts, tables, mesh=mesh)
+    staged = events[:events.index("launch")]
+    assert staged.count("replicas") == mesh.size and staged.count("tile") == 2 * mesh.size
+    assert events.count("launch") == mesh.size
+    np.testing.assert_array_equal(argb_t, argb_1)
+    assert torch.equal(accum_t, accum_1)  # 32 px: no padding at 4 tiles
+
+
 @pytest.fixture(scope="module")
 def scene8(scene):
     vol, _, _ = scene

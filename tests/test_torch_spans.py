@@ -6,7 +6,8 @@ and calls no record_function then; under a profiler the entries record
 their spans nested as the benchmark's readers expect (rmcl_bench/program.py),
 and the images are the same with the profiler on and off; an all-CPU mesh
 copies nothing. The `cuda` cases (the K2 launch's spans, the occupancy
-query, the bytes moved across two cards) skip without a card. The file
+query, the bytes moved across two cards, the two cards' bands running at
+once) skip without the cards they need. The file
 imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_spans.py
@@ -45,19 +46,24 @@ def _scene(device="cpu"):
     return vol, _opts(), sampling.make_mc_tables(2, seed=9, device=device)
 
 
-def _spans(prof):
-    """[(name, start, end)] of the port's spans in the profiler's chrome
-    trace (as the benchmark reads them: user annotations), in order of
-    start."""
+def _events(prof, cat):
+    """[(name, start, end, args)] of the complete events of category `cat`
+    in the profiler's chrome trace, in order of start."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    ev = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-          if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-          and e["name"].startswith("rmcl.")]
+    ev = [(e["name"], e["ts"], e["ts"] + e["dur"], e.get("args") or {}) for e in events
+          if e.get("ph") == "X" and e.get("cat") == cat]
     return sorted(ev, key=lambda s: s[1])
+
+
+def _spans(prof):
+    """[(name, start, end)] of the port's spans in the profiler's chrome
+    trace (as the benchmark reads them: user annotations), in order of
+    start."""
+    return [e[:3] for e in _events(prof, "user_annotation") if e[0].startswith("rmcl.")]
 
 
 def _inside(inner, outer):
@@ -111,16 +117,14 @@ def test_render_image_spans(traced):
 def test_render_image_tiled_spans(traced):
     spans = traced["spans_tiled"]
     names = [s[0] for s in spans]
-    assert names == (["rmcl.render_image_tiled"]
-                     + ["rmcl.tiling.tile", "rmcl.tiling.inputs"] * 4
-                     + ["rmcl.tiling.gather", "rmcl.readback"])
+    # every band's inputs are staged before the first band launches
+    assert names == (["rmcl.render_image_tiled"] + ["rmcl.tiling.inputs"] * 4
+                     + ["rmcl.tiling.tile"] * 4 + ["rmcl.tiling.gather", "rmcl.readback"])
     entry, rest = spans[0], spans[1:]
     assert all(_inside(s, entry) for s in rest)
-    tiles = [s for s in rest if s[0] == "rmcl.tiling.tile"]
-    inputs = [s for s in rest if s[0] == "rmcl.tiling.inputs"]
-    assert all(_inside(i, t) for i, t in zip(inputs, tiles))
-    gather, readback = rest[-2:]
-    assert tiles[-1][2] <= gather[1] and gather[2] <= readback[1]
+    inputs, first_tile = rest[:4], rest[4]
+    assert all(i[2] <= first_tile[1] for i in inputs)
+    assert all(a[2] <= b[1] for a, b in zip(rest, rest[1:]))  # one after another
 
 
 def test_images_equal_with_the_profiler_on_and_off(traced):
@@ -206,3 +210,29 @@ def test_bytes_copied_across_cards(cuda_device, entry):
     torch.cuda.synchronize()
     assert tiling.CALLS == calls_before + 1
     assert tiling.COPIED_BYTES - bytes_before == want
+
+
+@pytest.mark.cuda
+def test_tiled_bands_overlap_across_cards(cuda_device):
+    """Band 1's render pass starts on its card before band 0's ends on the
+    home card: band 1's inputs left the home card before band 0 launched."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    vres = [64, 64, 64]
+    vol = torch.from_numpy(generators.make_gyroid_volume({"vres": vres})).to("cuda:0")
+    # default march budgets and bounces: each band's K2c takes milliseconds
+    opts = render_options(width=512, height=256, vres=vres, iter=8, mat="metal",
+                          eyepos=compute_eyepos(135.0, 2.25, 0.35), targetpos=[0, -0.4, 0])
+    tables = sampling.make_mc_tables(8, seed=9, device="cuda:0")
+    acc = accel_mod.build_accel(vol, opts.voxelRes, opts.isoVal)
+    mesh = tiling.make_mesh(["cuda:0", "cuda:1"])
+    want = tiling.render_image_tiled(vol, opts, tables, mesh=mesh, accel=acc)[0]  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        img = tiling.render_image_tiled(vol, opts, tables, mesh=mesh, accel=acc)[0]
+        for d in range(2):
+            torch.cuda.synchronize(d)
+    bands = {e[3].get("device"): e for e in _events(prof, "kernel")
+             if "render_passes_kernel" in e[0]}
+    assert sorted(bands) == [0, 1]
+    assert bands[1][1] < bands[0][2]
+    np.testing.assert_array_equal(img, want)
