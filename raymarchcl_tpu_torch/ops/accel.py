@@ -30,6 +30,7 @@ without changing any hit or hit index.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +43,12 @@ EDGES = (4, 8, 16, 32)
 # samples (raymarchcl_tpu/ops/accel.py:105-110): i*vps + 2 + eps <=
 # d_equiv - 1  =>  i <= (d_equiv - 3.5) / vps.
 SKIP_SLACK = 3.5
+
+# The phases of build_accel, each a span `rmcl.accel.<phase>`, and the last
+# build's host seconds of each ("seconds"), its voxels and its rows' bytes,
+# replaced at each build.
+BUILD_PHASES = ("to_host", "bitplane", "distance", "upload")
+LAST_BUILD: dict = {}
 
 
 def row_words(edge: int) -> int:
@@ -94,27 +101,45 @@ def chebyshev_from_mask(stop_3d: np.ndarray) -> np.ndarray:
 def build_accel(vol, voxel_res, iso_val, edge: int = 8) -> Accel:
     """Brick table of a flat uint8 volume (index z*rx*ry + y*rx + x; numpy
     array or tensor), built on the host. The rows land on the tensor's
-    device (the CPU for numpy input)."""
+    device (the CPU for numpy input). Its phases' host seconds land in
+    LAST_BUILD."""
+    from ..utils.metrics import span  # utils.metrics imports ops.march, which imports this
+
+    ticks = [time.perf_counter()]
     device = vol.device if isinstance(vol, torch.Tensor) else torch.device("cpu")
-    if isinstance(vol, torch.Tensor):
-        vol = vol.cpu().numpy()
-    rx, ry, rz = int(voxel_res[0]), int(voxel_res[1]), int(voxel_res[2])
-    nbx, nby, nbz = brick_dims(voxel_res, edge)
-    v = np.asarray(vol, np.uint8).reshape(rz, ry, rx)
+    with span("rmcl.accel.to_host"):
+        if isinstance(vol, torch.Tensor):
+            vol = vol.cpu().numpy()
+        rx, ry, rz = int(voxel_res[0]), int(voxel_res[1]), int(voxel_res[2])
+        nbx, nby, nbz = brick_dims(voxel_res, edge)
+        v = np.asarray(vol, np.uint8).reshape(rz, ry, rx)
+    ticks.append(time.perf_counter())
 
-    stop = np.ones((nbz * edge, nby * edge, nbx * edge), bool)  # padding stops
-    stop[:rz, :ry, :rx] = v > iso_val
-    sb = (stop.reshape(nbz, edge, nby, edge, nbx, edge)
-          .transpose(0, 2, 4, 1, 3, 5)
-          .reshape(-1, edge**3))  # (NB, edge^3), local index L
-    occw = np.packbits(sb, axis=1, bitorder="little").view("<u4").astype(np.uint32)
+    with span("rmcl.accel.bitplane"):
+        stop = np.ones((nbz * edge, nby * edge, nbx * edge), bool)  # padding stops
+        stop[:rz, :ry, :rx] = v > iso_val
+        sb = (stop.reshape(nbz, edge, nby, edge, nbx, edge)
+              .transpose(0, 2, 4, 1, 3, 5)
+              .reshape(-1, edge**3))  # (NB, edge^3), local index L
+        occw = np.packbits(sb, axis=1, bitorder="little").view("<u4").astype(np.uint32)
+    ticks.append(time.perf_counter())
 
-    dist = chebyshev_from_mask(sb.any(axis=1).reshape(nbz, nby, nbx))
-    dist_w = edge**3 // 32
-    rows = np.zeros((sb.shape[0], dist_w + 2), np.uint32)
-    rows[:, :dist_w] = occw
-    rows[:, dist_w] = dist.reshape(-1)
-    return Accel(torch.from_numpy(rows.view(np.int32)).to(device), edge)
+    with span("rmcl.accel.distance"):
+        dist = chebyshev_from_mask(sb.any(axis=1).reshape(nbz, nby, nbx))
+        dist_w = edge**3 // 32
+        rows = np.zeros((sb.shape[0], dist_w + 2), np.uint32)
+        rows[:, :dist_w] = occw
+        rows[:, dist_w] = dist.reshape(-1)
+    ticks.append(time.perf_counter())
+
+    with span("rmcl.accel.upload"):
+        rows_t = torch.from_numpy(rows.view(np.int32)).to(device)
+    ticks.append(time.perf_counter())
+    LAST_BUILD.clear()
+    LAST_BUILD.update({"seconds": dict(zip(BUILD_PHASES, np.diff(ticks).tolist())),
+                       "voxels": rx * ry * rz,
+                       "rows_bytes": rows_t.numel() * rows_t.element_size()})
+    return Accel(rows_t, edge)
 
 
 def skips_per_distance(opts, delta):

@@ -33,6 +33,7 @@ from .tonemap import tonemap_pack_plain
 LAUNCHES = 0  # K2 launches (one per render_passes call; plain-version calls excluded)
 REFLECTIVE_LAUNCHES = 0  # those of LAUNCHES that ran the reflective instance (K2c)
 PACKS = 0  # K2 launches that also packed the image (K1's pack as their epilogue)
+BOUND_BYTES = 0  # bytes of the volume, MC tables and brick rows the last render_passes bound
 
 # The loops the counting build counts, in the order of csrc/render_pass.cu's
 # CountedLoop: (warp iterations, active lanes) of each
@@ -252,9 +253,11 @@ def render_passes(vol, opts, tables, times, accum, accel: Accel | None = None,
     by default the whole frame, N rows). CPU tensors take the plain
     versions, pass by pass, then the pack; CUDA tensors launch the kernel
     once, which packs in its epilogue (or raise)."""
+    global BOUND_BYTES
     times = pass_times(times)
     pix_lo, pix_count = pixel_range(opts, pix_lo, pix_count)
     _check(vol, opts, tables, times, accum, accel, argb, pix_count)
+    BOUND_BYTES = vol.nbytes + tables.nbytes + (0 if accel is None else accel.rows.nbytes)
     if accum.device.type == "cpu":
         for p in range(tables.shape[0]):
             accum.copy_(render_pass_plain(vol, opts.replace(time=times[p]), tables[p], accum,
