@@ -4,11 +4,14 @@ Counterpart of `raymarchcl_tpu/parallel/tiling.py`, with its public names
 and return shapes. The reference is strictly single-GPU (core.clj:121-123
 picks one device); its parallelism is one work-item per pixel. The
 scale-out axis is the same data parallelism lifted across cards: the flat
-pixel axis is cut into one contiguous tile a device, the voxel volume, MC
+pixel axis is cut into one contiguous band a device, the voxel volume, MC
 tables and options are replicated (a 256^3 volume is 16.8 MB), and the
-only communication is the gather of finished tiles.
+only communication is the gather of finished bands. Equal pixels are not
+equal work (the ground near the camera marches longest), so where the
+bands' device times are measured, each frame's bands are cut from the
+times of the frames before it to take equal time (`_Bands`).
 
-Pixel identity drives the jitter seeds, so each tile renders its GLOBAL
+Pixel identity drives the jitter seeds, so each band renders its GLOBAL
 pixel ids, through one K2 launch over its pixel range
 (ops/kernels/render_pass.render_passes(pix_lo=, pix_count=)): a tiled
 render equals the single-device render bit for bit. The pass (spp) axis
@@ -24,6 +27,7 @@ so that every rank holds the whole accum and image.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,6 +50,12 @@ PASS_AXIS = "passes"
 # collectives of a process group are not counted.
 COPIED_BYTES = 0
 CALLS = 0
+
+# Pixel rows of K2's warp tiles (csrc/render_pass.cu kTileH): a band cut on
+# a multiple of them keeps every tile whole.
+STRIP_ROWS = 4
+# The weight of a frame's measured band times in each strip's cost.
+NEW_COST_WEIGHT = 0.5
 
 
 @dataclass(frozen=True)
@@ -152,6 +162,65 @@ class _Replicas:
         return self._on[dev]
 
 
+class _Bands:
+    """Where the bands of a w x h frame over n mesh entries start.
+
+    Band t holds pixels [t * blk, (t + 1) * blk), blk = ceil(N / n), until
+    a frame's band times are `record`ed. The first frame's are dropped:
+    between a band's two events they hold one-time costs, such as a card's
+    first load of the kernel, which would skew the cut for many frames
+    after. From the second, each band's device ms is spread evenly over the strips (STRIP_ROWS pixel rows) it covers and
+    blended into a cost a strip, and `offsets` cuts the next frame's bands
+    on strip edges where the strips' running cost is nearest each n-th of
+    its total: a split whose bands took equal times stays as it is. The
+    last band always runs to n_pad = n * blk, its rows past pixel N-1
+    rendering N-1 again."""
+
+    def __init__(self, n, w, h):
+        self.n, self.w, self.n_pix = n, w, w * h
+        self.blk = -(-self.n_pix // n)
+        self.strips = -(-h // STRIP_ROWS)
+        self.cost = None  # each strip's device ms, blended over the frames
+        self.frames = 0  # frames recorded
+
+    def offsets(self) -> list:
+        """The n + 1 pixel offsets of the bands in the home buffers."""
+        if self.cost is None:
+            return [t * self.blk for t in range(self.n + 1)]
+        run = np.concatenate([[0.0], np.cumsum(self.cost)])
+        edges = [0]
+        for k in range(1, self.n):
+            goal = run[-1] * k / self.n
+            e = int(np.searchsorted(run, goal))
+            e -= int(run[e] - goal > goal - run[e - 1])
+            edges.append(min(max(e, edges[-1] + 1), self.strips - (self.n - k)))
+        return [e * STRIP_ROWS * self.w for e in edges] + [self.n * self.blk]
+
+    def record(self, offsets, ms):
+        """The device ms of the bands that started at `offsets`."""
+        self.frames += 1
+        if self.frames == 1:
+            return
+        at = np.minimum(offsets, self.n_pix) / (STRIP_ROWS * self.w)
+        spent = np.interp(np.arange(self.strips + 1), at, np.concatenate([[0.0], np.cumsum(ms)]))
+        cost = np.diff(spent)
+        self.cost = cost if self.cost is None else (
+            (1 - NEW_COST_WEIGHT) * self.cost + NEW_COST_WEIGHT * cost)
+
+
+@functools.lru_cache(maxsize=16)
+def _bands(mesh, w, h) -> _Bands:
+    """The bands of a mesh's w x h frames, kept across its calls."""
+    return _Bands(mesh.size, w, h)
+
+
+def _band_ms(marks) -> list:
+    """Each band's device ms, from the events around its launch."""
+    for _, end in marks:
+        end.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
+
+
 def _times(times, n_passes):
     if times is None:
         return torch.arange(n_passes, dtype=torch.float32) * render_mod.TIME_STEP_INIT
@@ -177,9 +246,12 @@ def _host_image(opts, argb):
 def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, accel=None):
     """Drop-in tiled equivalent of ops.render.render_image.
 
-    Tile t of the mesh's n renders global pixel ids [t*blk, (t+1)*blk),
-    blk = ceil(N / n), on its device: one K2 launch over that pixel range,
-    which packs the tile's image; rows past pixel N-1 render N-1 again.
+    Band t of the mesh's n renders global pixel ids [lo_t, lo_{t+1}) on its
+    device: one K2 launch over that pixel range, which packs the band's
+    image; rows past pixel N-1 render N-1 again. The bands start where
+    `_Bands` says: equal, blk = ceil(N / n) pixels, until the mesh has
+    rendered a frame of this size with its band times measured (every
+    entry a CUDA card, in one process), then cut to take equal time.
     Returns (argb (H, W) uint32 numpy, accum (n_pad, 3) float32 on the
     mesh's home device), n_pad = n * blk; feed accum back in to refine
     progressively. An accum passed in on the home device is updated in
@@ -188,11 +260,13 @@ def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, 
     with span("rmcl.render_image_tiled"):
         CALLS += 1
         mesh = make_mesh() if mesh is None else mesh
-        n_pix = opts.num_pixels
-        blk = -(-n_pix // mesh.size)
+        bands = _bands(mesh, *opts.resolution)
+        off = bands.offsets()
+        timed = (mesh.ranks is None and mesh.size > 1 and bands.strips >= mesh.size
+                 and all(d.type == "cuda" for d in mesh.devices))
         times = _times(times, mc_tables.shape[0])
-        accum = _start_accum(accum, blk * mesh.size, mesh.home)
-        argb = torch.empty(blk * mesh.size, dtype=torch.int32, device=mesh.home)
+        accum = _start_accum(accum, off[-1], mesh.home)
+        argb = torch.empty(off[-1], dtype=torch.int32, device=mesh.home)
         replicas = _Replicas(vol, mc_tables, accel, mesh.home)
         # Every band's inputs go to its device before any band launches: a
         # cross-card copy is queued on the source card's current stream, so
@@ -200,27 +274,36 @@ def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, 
         # kernel, and that band's device with it.
         staged = []
         for t in mesh.local_entries():
-            dev, lo = mesh.devices[t], t * blk
+            dev, lo, hi = mesh.devices[t], off[t], off[t + 1]
             with span("rmcl.tiling.inputs"):
-                acc_t, argb_t = accum[lo:lo + blk].to(dev), argb[lo:lo + blk].to(dev)
-                staged.append((lo, acc_t, argb_t, replicas.on(dev)))
+                acc_t, argb_t = accum[lo:hi].to(dev), argb[lo:hi].to(dev)
+                staged.append((lo, hi, acc_t, argb_t, replicas.on(dev)))
             if dev != mesh.home:
                 COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
-        for lo, acc_t, argb_t, (v, tabs, bricks) in staged:
+        marks = []
+        for lo, hi, acc_t, argb_t, (v, tabs, bricks) in staged:
             with span("rmcl.tiling.tile"):
+                if timed:
+                    marks.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+                    marks[-1][0].record(torch.cuda.current_stream(acc_t.device))
                 render_mod.render_passes(v, opts, tabs, times, acc_t, bricks, argb_t,
-                                         pix_lo=lo, pix_count=blk)
+                                         pix_lo=lo, pix_count=hi - lo)
+                if timed:
+                    marks[-1][1].record(torch.cuda.current_stream(acc_t.device))
         with span("rmcl.tiling.gather"):
-            for lo, acc_t, argb_t, _ in staged:  # tiles rendered off the home device come back
+            for lo, hi, acc_t, argb_t, _ in staged:  # bands rendered off the home device come back
                 if acc_t.device != mesh.home:
-                    accum[lo:lo + blk].copy_(acc_t)
-                    argb[lo:lo + blk].copy_(argb_t)
+                    accum[lo:hi].copy_(acc_t)
+                    argb[lo:hi].copy_(argb_t)
                     COPIED_BYTES += acc_t.nbytes + argb_t.nbytes
-            if mesh.ranks is not None:
-                (lo, *_), = staged
-                accum = distributed.all_gather_rows(accum[lo:lo + blk])
-                argb = distributed.all_gather_rows(argb[lo:lo + blk])
-        return _host_image(opts, argb), accum
+            if mesh.ranks is not None:  # equal bands: all_gather_rows takes equal parts
+                (lo, hi, *_), = staged
+                accum = distributed.all_gather_rows(accum[lo:hi])
+                argb = distributed.all_gather_rows(argb[lo:hi])
+        image = _host_image(opts, argb)
+        if timed:  # the readback waited for every band's copy, so for its launch
+            bands.record(off, _band_ms(marks))
+        return image, accum
 
 
 def _pass_sharded(vol, opts, mc_tables, times, accum, mesh, accel):

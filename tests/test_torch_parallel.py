@@ -155,6 +155,104 @@ def test_tiled_stages_every_band_before_any_launch(scene, monkeypatch):
     assert torch.equal(accum_t, accum_1)  # 32 px: no padding at 4 tiles
 
 
+def _strip_cost(profile, strips):
+    """A strip cost that grows down the frame, as the ground near the camera
+    does: a ramp, a step, or a ramp with a bump in the middle."""
+    x = (np.arange(strips) + 0.5) / strips
+    return {"ramp": 1 + 3 * x, "step": np.where(x > 0.6, 5.0, 1.0),
+            "bump": 0.4 + 1.2 * x ** 2 + 0.6 * np.exp(-((x - 0.5) / 0.15) ** 2)}[profile]
+
+
+@pytest.mark.parametrize("profile", ["ramp", "step", "bump"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_bands_take_equal_time(n, profile):
+    """Fed the device ms its bands took (each strip's cost plus a launch's
+    fixed 10 ms), the split of a 1024x1022 frame (256 strips, the last one
+    clipped) comes within 5% of equal times in 12 frames, and stays there.
+    Every split starts at 0, ends at n_pad = n * ceil(N / n), cuts on strip
+    edges after the first frame, and never leaves a band empty."""
+    w, h = 1024, 1022
+    bands = tiling._Bands(n, w, h)
+    cost = np.concatenate([[0.0], np.cumsum(_strip_cost(profile, bands.strips))])
+    n_pad = -(-w * h // n) * n
+    assert bands.offsets() == [t * (n_pad // n) for t in range(n + 1)]
+    imbalance = []
+    for _ in range(16):
+        off = bands.offsets()
+        assert off[0] == 0 and off[-1] == n_pad and all(np.diff(off) > 0)
+        spent = np.interp(np.minimum(off, w * h) / (4 * w), np.arange(bands.strips + 1), cost)
+        ms = np.diff(spent) + 10.0
+        bands.record(off, ms)
+        imbalance.append(ms.max() / ms.mean())
+    assert all(o % (4 * w) == 0 for o in bands.offsets()[:-1])
+    assert imbalance[0] > 1.1 and max(imbalance[12:]) < 1.05
+
+
+def test_bands_that_took_equal_times_stay():
+    """The first frame's times are dropped (one-time costs, however
+    skewed); after it unequal times move the cuts and equal times leave
+    them."""
+    bands = tiling._Bands(4, 64, 64)
+    equal = [0, 1024, 2048, 3072, 4096]
+    bands.record(equal, [900.0, 3.0, 2.0, 2.0])
+    assert bands.offsets() == equal and bands.cost is None
+    bands.record(equal, [1.0, 3.0, 2.0, 2.0])
+    off = bands.offsets()
+    assert off != equal and off[-1] == 4096
+    bands.record(off, [5.0] * 4)
+    assert bands.offsets() == off
+
+
+@pytest.mark.parametrize("size", [(40, 24), (41, 23)], ids=["40x24", "41x23"])
+@pytest.mark.parametrize("n_dev", [2, 3, 4])
+def test_tiled_unequal_bands_bit_equal(scene, monkeypatch, n_dev, size):
+    """Bands cut from a strip cost (as on cards, from the times of the frames
+    before): one launch each over its own pixel range, together every row
+    of the (n_pad, 3) accum once, and the frame, and a second frame fed the
+    accum back over other bands, bit-equal to the single-device render (pad
+    rows holding pixel N-1)."""
+    vol, _, tables = scene
+    w, h = size
+    opts = _opts(width=w, height=h, iter=1)
+    _, acc_1 = render.render_image(vol, opts, tables[:1])
+    argb_1, acc_1 = render.render_image(vol, opts, tables[1:], times=[0.333], accum=acc_1)
+    bands = tiling._Bands(n_dev, w, h)
+    monkeypatch.setattr(tiling, "_bands", lambda mesh, w, h: bands)
+    launches, real_passes = [], tiling.render_mod.render_passes
+
+    def render_passes(*args, pix_lo, pix_count):
+        launches.append((pix_lo, pix_lo + pix_count))
+        return real_passes(*args, pix_lo=pix_lo, pix_count=pix_count)
+
+    monkeypatch.setattr(tiling.render_mod, "render_passes", render_passes)
+    mesh = _cpus(n_dev)
+    bands.cost = _strip_cost("step", bands.strips)
+    off_a = bands.offsets()
+    _, acc_t = tiling.render_image_tiled(vol, opts, tables[:1], mesh=mesh)
+    bands.cost = _strip_cost("ramp", bands.strips)[::-1].copy()
+    off_b = bands.offsets()
+    argb_t, acc_t = tiling.render_image_tiled(vol, opts, tables[1:], times=[0.333],
+                                              accum=acc_t, mesh=mesh)
+    assert off_a != off_b
+    assert launches == list(zip(off_a, off_a[1:])) + list(zip(off_b, off_b[1:]))
+    np.testing.assert_array_equal(argb_t, argb_1)
+    n, n_pad = opts.num_pixels, off_a[-1]
+    assert acc_t.shape == (n_pad, 3) and n_pad == -(-n // n_dev) * n_dev
+    assert torch.equal(acc_t[:n], acc_1)
+    assert torch.equal(acc_t[n:], acc_1[n - 1:].expand(n_pad - n, 3))
+
+
+def test_cpu_meshes_keep_equal_bands(scene):
+    """Without device times (CPU entries) no frame is recorded: the bands
+    stay equal, call after call."""
+    vol, opts, tables = scene
+    mesh = _cpus(4)
+    for _ in range(2):
+        tiling.render_image_tiled(vol, opts, tables[:1], mesh=mesh)
+    assert tiling._bands(mesh, 40, 24).cost is None
+    assert tiling._bands(mesh, 40, 24).offsets() == [0, 240, 480, 720, 960]
+
+
 @pytest.fixture(scope="module")
 def scene8(scene):
     vol, _, _ = scene

@@ -7,7 +7,7 @@ their spans nested as the benchmark's readers expect (rmcl_bench/program.py),
 and the images are the same with the profiler on and off; an all-CPU mesh
 copies nothing. The `cuda` cases (the K2 launch's spans, the occupancy
 query, the bytes moved across two cards, the two cards' bands running at
-once) skip without the cards they need. The file
+once and cut from their measured times) skip without the cards they need. The file
 imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_spans.py
@@ -236,3 +236,33 @@ def test_tiled_bands_overlap_across_cards(cuda_device):
     assert sorted(bands) == [0, 1]
     assert bands[1][1] < bands[0][2]
     np.testing.assert_array_equal(img, want)
+
+
+@pytest.mark.cuda
+def test_tiled_bands_follow_their_times(cuda_device):
+    """Over two cards each frame's band times are recorded (the first
+    frame's dropped), and the next frame's bands are cut from them on strip
+    edges; every frame stays the one-card render bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    vres = [64, 64, 64]
+    vol = torch.from_numpy(generators.make_gyroid_volume({"vres": vres})).to("cuda:0")
+    opts = render_options(width=512, height=256, vres=vres, iter=4, mat="metal",
+                          eyepos=compute_eyepos(135.0, 2.25, 0.35), targetpos=[0, -0.4, 0])
+    tables = sampling.make_mc_tables(4, seed=9, device="cuda:0")
+    acc = accel_mod.build_accel(vol, opts.voxelRes, opts.isoVal)
+    want = render.render_image(vol, opts, tables, accel=acc)[0]
+    mesh = tiling.make_mesh(["cuda:0", "cuda:1"])
+    tiling._bands.cache_clear()
+    bands = tiling._bands(mesh, 512, 256)
+    for frame in range(4):
+        off = bands.offsets()
+        assert off[0] == 0 and off[-1] == 512 * 256
+        if frame > 1:
+            assert bands.cost is not None and bool((bands.cost > 0).all())
+            assert off[1] % (4 * 512) == 0
+        else:
+            assert off == [0, 256 * 256, 512 * 256]
+        img = tiling.render_image_tiled(vol, opts, tables, mesh=mesh, accel=acc)[0]
+        np.testing.assert_array_equal(img, want)
+    tiling._bands.cache_clear()
