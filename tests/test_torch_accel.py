@@ -2,21 +2,15 @@
 package's `build_accel`, and the port's march over it against its own raw
 march (bit for bit) and against the JAX package's brick march."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators
 from raymarchcl_tpu.ops import accel as j_accel
-from raymarchcl_tpu.ops import march as jm
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as js
-from raymarchcl_tpu.ops import shade as jsh
-from raymarchcl_tpu.ops.camera import camera_ray_lookat as j_camera
 from raymarchcl_tpu.ops.camera import compute_eyepos
-from raymarchcl_tpu.ops.vecmath import V3 as JV3
 from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.convert import accel_from_numpy, tables_from_numpy, volume_from_numpy
 from raymarchcl_tpu_torch.ops import accel as t_accel
@@ -24,16 +18,18 @@ from raymarchcl_tpu_torch.ops import march as tm
 from raymarchcl_tpu_torch.ops import render as t_render
 from raymarchcl_tpu_torch.ops import shade as tsh
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
-from raymarchcl_tpu_torch.ops.vecmath import V3, dot, normalize
+from raymarchcl_tpu_torch.ops.vecmath import V3
 from raymarchcl_tpu_torch.options import render_options
+from test_torch_march import port_march, shadow_rays
 
 torch.set_num_threads(1)
 
 VRES = [32, 32, 96]
 W, H = 32, 24
-N = W * H
 # the reduced budgets of tests/test_accel.py's scene
 BUDGETS = dict(maxIter=32, maxVoxelIter=64, shadowIter=32)
+KW = dict(width=W, height=H, vres=VRES, iter=1, mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
+          targetpos=[0, -0.4, 0], **BUDGETS)
 
 
 def _t(a):
@@ -44,8 +40,8 @@ def _tv(v):
     return V3(*(_t(c) for c in v))
 
 
-def _jv(v):
-    return JV3(*(jnp.asarray(c.numpy()) for c in v))
+def _np3(v):
+    return np.stack([c.numpy() for c in v])
 
 
 def _jax_rows(vol, res, iso, edge):
@@ -62,13 +58,17 @@ def _jax_rows(vol, res, iso, edge):
 @pytest.fixture(scope="module")
 def scene():
     vol = generators.make_gyroid_volume({"vres": VRES})
-    kw = dict(width=W, height=H, vres=VRES, iter=1, mat="ao",
-              eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0], **BUDGETS)
-    jo, to = j_render_options(**kw), render_options(**kw)
+    jo, to = j_render_options(**KW), render_options(**KW)
     jacc = j_accel.build_accel(vol, jo.voxelRes, jo.isoVal)
+    rows = np.asarray(jacc.rows)
     # the port marches over the JAX package's own table
-    tacc = accel_from_numpy(np.asarray(jacc.rows), jacc.edge)
-    return dict(vol=vol, kw=kw, jo=jo, to=to, jacc=jacc, tacc=tacc)
+    return dict(vol=vol, to=to, rows=rows, tacc=accel_from_numpy(rows, jacc.edge))
+
+
+def _answer(name, scene, *more):
+    """The JAX package's answer `name` over the scene and its brick table
+    (tests/jax_answers.py)."""
+    return jax_answers.load(name, jax_answers.digest(scene["vol"], None, KW, scene["rows"], *more))
 
 
 def _random_volume():
@@ -116,33 +116,39 @@ def test_chebyshev_and_checks():
         accel_from_numpy(np.zeros((4, 18), np.uint32), 6)
 
 
-def test_march_volume_brick_equal_raw_and_jax(scene):
-    """hit and hit_k of the brick march, with the static and per-ray caps
-    (tests/test_accel.py:283-311): bit-equal to the port's raw march at
-    edges 4, 8 and 16, and to the JAX brick march."""
-    vol, to, jo = scene["vol"], scene["to"], scene["jo"]
+def march_volume_inputs(steps):
+    """512 random rays' start points and steps (`steps` to cross the grid),
+    per-ray caps, and the cap keywords each march takes."""
     rng = np.random.default_rng(11)
     n = 512
     p0 = rng.uniform(-0.4, 1.4, (3, n)).astype(np.float32)
     d = rng.normal(size=(3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
-    delta = (d * (2.0 / to.maxVoxelIter) * 0.5).astype(np.float32)
-    mkd = rng.integers(0, to.maxVoxelIter + 1, n, dtype=np.int32)
+    delta = (d * (2.0 / steps) * 0.5).astype(np.float32)
+    mkd = rng.integers(0, steps + 1, n, dtype=np.int32)
+    return p0, delta, mkd, ({}, {"max_k": 7}, {"max_k": 0}, {"max_k_dyn": mkd},
+                            {"max_k": 13, "max_k_dyn": mkd})
+
+
+def test_march_volume_brick_equal_raw_and_jax(scene):
+    """hit and hit_k of the brick march, with the static and per-ray caps
+    (tests/test_accel.py:283-311): bit-equal to the port's raw march at
+    edges 4, 8 and 16, and to the JAX brick march."""
+    vol, to = scene["vol"], scene["to"]
+    steps = to.maxVoxelIter
+    p0, delta, mkd, cases = march_volume_inputs(steps)
+    want = _answer("accel-march-volume", scene, p0, delta, mkd)
+    n = len(mkd)
     tp0, tdelta, act = _tv(p0), _tv(delta), torch.ones(n, dtype=torch.bool)
     accs = [scene["tacc"]] + [t_accel.build_accel(vol, VRES, to.isoVal, e) for e in (4, 16)]
-    steps = to.maxVoxelIter
-    for kw in ({}, {"max_k": 7}, {"max_k": 0}, {"max_k_dyn": mkd}, {"max_k": 13, "max_k_dyn": mkd}):
+    for i, kw in enumerate(cases):
         tkw = {k: (_t(v) if k == "max_k_dyn" else v) for k, v in kw.items()}
         raw = tm.march_volume(_t(vol), to, tp0, tdelta, steps, act, **tkw)
         for acc in accs:
             got = tm.march_volume(_t(vol), to, tp0, tdelta, steps, act, accel=acc, **tkw)
             assert torch.equal(got[0], raw[0]) and torch.equal(got[1], raw[1]), (acc.edge, kw)
-        jkw = {k: (jnp.asarray(v) if k == "max_k_dyn" else v) for k, v in kw.items()}
-        jh, jk = jm.march_volume(jnp.asarray(vol), jo, JV3(*map(jnp.asarray, p0)),
-                                 JV3(*map(jnp.asarray, delta)), steps, jnp.ones(n, bool),
-                                 accel=scene["jacc"], **jkw)
-        np.testing.assert_array_equal(raw[0].numpy(), np.asarray(jh))
-        np.testing.assert_array_equal(raw[1].numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(raw[0].numpy(), want[f"hit{i}"])
+        np.testing.assert_array_equal(raw[1].numpy(), want[f"k{i}"])
     assert 0 < int(raw[0].sum()) < n  # hits and misses present
 
 
@@ -179,25 +185,12 @@ def test_march_skips_free_space():
 @pytest.fixture(scope="module")
 def primary(scene):
     """Camera rays of a 32x24 frame marched by both packages with the brick
-    table, and by the port without it."""
-    jo, to, vol = scene["jo"], scene["to"], scene["vol"]
-    table = np.array(js.generate_scatter_offsets(seed=3))
-
-    @jax.jit
-    def jfn(o, vol, table_t, acc):
-        st = js.init_render_state(o, table_t, jnp.arange(N, dtype=jnp.int32))
-        p, d = j_camera(o, st)
-        i = jm.raymarch(vol, o, p, d, o.maxDist, o.maxIter, smooth=True,
-                        active=jnp.ones(N, bool), accel=acc)
-        return p, d, i["object_id"], i["distance"]
-
-    jp, jd, jid, jdist = jfn(jo, jnp.asarray(vol), js.transpose_table(jnp.asarray(table)),
-                             scene["jacc"])
-    p, d = _tv(jp), _tv(jd)
-    act = torch.ones(N, dtype=torch.bool)
-    raw = tm.raymarch(_t(vol), to, p, d, to.maxDist, to.maxIter, act)
-    brick = tm.raymarch(_t(vol), to, p, d, to.maxDist, to.maxIter, act, accel=scene["tacc"])
-    return dict(raw=raw, brick=brick, p=p, d=d, jid=np.asarray(jid), jdist=np.asarray(jdist))
+    table (the JAX package's rays go into the port), and by the port
+    without it."""
+    to, vol = scene["to"], scene["vol"]
+    want = _answer("accel-primary", scene, np.array(js.generate_scatter_offsets(seed=3)))
+    raw, brick = (port_march(vol, to, want, acc) for acc in (None, scene["tacc"]))
+    return dict(raw=raw, brick=brick, jid=want["object_id"], jdist=want["distance"])
 
 
 def test_raymarch_brick_equal_raw_and_jax(primary):
@@ -219,19 +212,12 @@ def test_raymarch_brick_equal_raw_and_jax(primary):
 def test_shadow_brick_exact(scene, primary):
     """Shadow rays toward the light over the brick table: the 0/1 factor
     equals the port's raw march and the JAX brick march."""
-    jo, to, vol, isec = scene["jo"], scene["to"], scene["vol"], primary["brick"]
-    hit = isec["distance"] < 30
-    lp = V3(*(torch.full((N,), float(v)) for v in to.lightPos[0, :3]))
-    delta = lp - isec["pos"]
-    ldir = normalize(delta)
-    lmax = torch.minimum(torch.sqrt(dot(delta, delta)) - to.shadowBias, to.maxDist)
-    origin = V3(*(c + dc * 0.1 for c, dc in zip(isec["pos"], ldir)))
+    to, vol = scene["to"], scene["vol"]
+    hit, origin, ldir, lmax = shadow_rays(to, primary["brick"])
     got = tsh.shadow(_t(vol), to, origin, ldir, lmax, hit, accel=scene["tacc"])
     assert torch.equal(got, tsh.shadow(_t(vol), to, origin, ldir, lmax, hit))
-    want = jax.jit(lambda o, v, org, ld, lm, a, acc: jsh.shadow(v, o, org, ld, lm, a, accel=acc))(
-        jo, jnp.asarray(vol), _jv(origin), _jv(ldir), jnp.asarray(lmax.numpy()),
-        jnp.asarray(hit.numpy()), scene["jacc"])
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = _answer("accel-shadow", scene, hit, _np3(origin), _np3(ldir), lmax)
+    np.testing.assert_array_equal(got.numpy(), want["shadow"])
     assert 0 < float(got[hit].mean()) < 1
 
 
@@ -249,8 +235,7 @@ def test_render_pass_and_image_with_accel(scene):
     assert torch.equal(brick, raw)
     argb, acc = t_render.render_image(vol, to, table, accel=scene["tacc"])
     assert torch.equal(acc, raw)  # 1 spp from zero: the pass itself
-    _, j_acc = j_render.render_image(jnp.asarray(scene["vol"]), scene["jo"],
-                                     jnp.asarray(tables), accel=scene["jacc"])
-    ok = np.isclose(acc.numpy(), np.asarray(j_acc), rtol=5e-3, atol=5e-3).all(axis=1)
+    j_acc = _answer("accel-frame", scene, tables)["acc"]
+    ok = np.isclose(acc.numpy(), j_acc, rtol=5e-3, atol=5e-3).all(axis=1)
     assert ok.mean() >= 0.995, f"{(~ok).sum()}/{ok.size} pixels diverged"
     assert len(np.unique(argb)) > 16

@@ -1,15 +1,16 @@
 """The port's checkpoint/resume (io/checkpoint.py), mirroring
 tests/test_checkpoint.py on the CPU: chunked and resumed renders are
 bit-equal to uninterrupted ones, and the file format and pass digest are
-the JAX package's, so a checkpoint the JAX package wrote resumes here."""
+the JAX package's, so a checkpoint the JAX package wrote resumes here. The
+JAX package's checkpoint, frame and pass digests are read from
+tests/jax_answers."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.io import checkpoint as j_ckpt
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as js
 from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.convert import volume_from_numpy
@@ -153,30 +154,26 @@ def test_default_device_needs_card(tmp_path, scene, monkeypatch):
 @pytest.mark.parametrize("seed", [None, 0, 7])
 @pytest.mark.parametrize("step", ["init", "anim"])
 def test_pass_digest_equals_jax(seed, step):
-    t_tables, j_tables = make_mc_tables(3, seed=4), js.make_mc_tables(3, seed=4)
+    t_tables = make_mc_tables(3, seed=4)
     t_times = torch.arange(3, dtype=torch.float32) * getattr(render_mod, f"TIME_STEP_{step.upper()}")
-    j_times = jnp.arange(3, dtype=jnp.float32) * getattr(j_render, f"TIME_STEP_{step.upper()}")
+    want = jax_answers.load(f"checkpoint-pass-digest-{step}",
+                            jax_answers.digest(None, t_tables, {}, t_times))[f"seed-{seed}"]
     got = checkpoint.pass_digest(t_tables, t_times, seed)
-    assert got == j_ckpt.pass_digest(j_tables, j_times, seed)
+    assert got == str(want)
     assert got == checkpoint.pass_digest(t_tables.numpy(), t_times.numpy(), seed)
     assert got != checkpoint.pass_digest(t_tables[:2], t_times[:2], seed)
 
 
 def test_jax_checkpoint_resumes_in_port(tmp_path, scene, straight):
-    """The JAX render_checkpointed stops after 2 of 5 passes; the port
-    resumes its file and ends at the port's straight frame within the
-    parity tolerance (bit-equal wherever the two packages' first passes
-    agreed), and within the tolerance of the JAX straight frame."""
+    """The JAX render_checkpointed stopped after 2 of 5 passes (its file,
+    byte for byte, from tests/jax_answers); the port resumes the file and
+    ends at the port's straight frame within the parity tolerance
+    (bit-equal wherever the two packages' first passes agreed), and within
+    the tolerance of the JAX straight frame."""
     vol_np, opts, tables = scene
-    j_vol, j_opts, j_tables = jnp.asarray(vol_np), j_render_options(**KW), js.make_mc_tables(5, seed=2)
-    np.testing.assert_array_equal(np.asarray(j_tables), tables.numpy())
-
-    def stop(done, total):
-        raise KeyboardInterrupt
-
-    with pytest.raises(KeyboardInterrupt):
-        j_ckpt.render_checkpointed(j_vol, j_opts, j_tables, tmp_path / "ck", chunk=2,
-                                   progress=stop)
+    np.testing.assert_array_equal(np.asarray(js.make_mc_tables(5, seed=2)), tables.numpy())
+    ans = jax_answers.load("checkpoint-resume", jax_answers.digest(vol_np, tables, KW))
+    (tmp_path / "ck.npz").write_bytes(ans["ckpt"].tobytes())
     j_accum2, meta = checkpoint.load_accum(tmp_path / "ck", opts)
     assert meta["passes_done"] == 2
     argb, accum = checkpoint.render_checkpointed(vol_np, opts, tables, tmp_path / "ck",
@@ -193,6 +190,5 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, scene, straight):
     same = (accum == straight[1]).all(dim=1).numpy()
     assert same.mean() > 0.5
     np.testing.assert_array_equal(argb.reshape(-1)[same], straight[0].reshape(-1)[same])
-    j_argb, j_accum = j_render.render_image(j_vol, j_opts, j_tables)
-    ok = np.isclose(accum.numpy(), np.asarray(j_accum), **TOL).all(axis=1)
+    ok = np.isclose(accum.numpy(), ans["acc"], **TOL).all(axis=1)
     assert ok.mean() >= 0.995

@@ -1,7 +1,9 @@
 """The port's animation, preview and CLI entry points (api.test_anim,
 api.preview_overrides, api.test_render(preview=True), __main__) and its
 runtime module, against the JAX package's on the CPU. Volumes go through
-`.vox` files in tmp_path, so no test shares the volume cache."""
+`.vox` files in tmp_path, so no test shares the volume cache. The JAX
+package's animation frames and preview image are read from
+tests/jax_answers."""
 
 import os
 import struct
@@ -11,6 +13,7 @@ import pytest
 import torch
 from PIL import Image
 
+import jax_answers
 from raymarchcl_tpu import api as j_api
 from raymarchcl_tpu.__main__ import main as j_cli
 from raymarchcl_tpu_torch import api, runtime
@@ -24,6 +27,9 @@ from raymarchcl_tpu_torch.ops.camera import compute_eyepos
 torch.set_num_threads(1)
 
 TREFOIL = os.path.join(os.path.dirname(__file__), "..", "assets", "trefoil.stl")
+ANIM = dict(width=24, height=16, iter=2, res=16, mat="ao", frames=3)
+PREVIEW = dict(width=24, height=16, iter=1, mat="ao", out_path=None, verbose=False, preview=True,
+               seed=3)
 
 
 @pytest.fixture(scope="module")
@@ -50,15 +56,13 @@ def test_anim_matches_jax_and_carries_accum(tmp_path, gyroid16, capsys):
     thresholds of the JAX package's; frames differ (the camera orbits); and
     frame 1 differs from a fresh render of its configuration, as the
     accumulation carried across frames blends into it (core.clj:194-208)."""
-    paths = api.test_anim(24, 16, 2, 16, "ao", vname=gyroid16, out_dir=str(tmp_path / "t"),
-                          frames=3, device="cpu")
+    paths = api.test_anim(vname=gyroid16, out_dir=str(tmp_path / "t"), device="cpu", **ANIM)
     assert [os.path.basename(p) for p in paths] == [f"frame-000{i}.png" for i in range(3)]
     assert capsys.readouterr().out.count("rendered frame #") == 3
-    j_paths = j_api.test_anim(24, 16, 2, 16, "ao", vname=gyroid16,
-                              out_dir=str(tmp_path / "j"), frames=3, verbose=False)
+    want = _jax_answer("cli-anim", gyroid16, ANIM)["rgb"]
     imgs = [_rgb(p) for p in paths]
-    for got, want in zip(imgs, j_paths):
-        _close_images(got, _rgb(want))
+    for got, w in zip(imgs, want):
+        _close_images(got, w.astype(np.int32))
     assert not np.array_equal(imgs[0], imgs[1]) and not np.array_equal(imgs[1], imgs[2])
     t = 1 / 3
     volume, vres = api.load_or_generate_volume(gyroid16, None)
@@ -84,11 +88,15 @@ def test_preview_overrides_equal(kw, it):
     assert api.preview_overrides(dict(kw), it) == j_api.preview_overrides(dict(kw), it)
 
 
+def _jax_answer(name, vname, kw):
+    """The JAX package's answer `name` from the .vox file `vname`."""
+    return jax_answers.load(name, jax_answers.digest(np.fromfile(vname, np.uint8), None, kw))
+
+
 def test_preview_render_matches_jax(gyroid16):
-    kw = dict(width=24, height=16, iter=1, mat="ao", vname=gyroid16, out_path=None,
-              verbose=False, preview=True, seed=3)
+    kw = dict(PREVIEW, vname=gyroid16)
     got = api.test_render(device="cpu", **kw)
-    want = np.asarray(j_api.test_render(**kw))
+    want = _jax_answer("cli-preview", gyroid16, PREVIEW)["argb"]
     _close_images(got.view(np.uint8).reshape(16, 24, 4)[..., :3].astype(np.int32),
                   want.view(np.uint8).reshape(16, 24, 4)[..., :3].astype(np.int32))
     full = api.test_render(device="cpu", **dict(kw, preview=False))

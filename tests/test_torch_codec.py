@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu import compat as j_compat
 from raymarchcl_tpu import options_codec as j_codec
 from raymarchcl_tpu.io import imageio as j_imageio
@@ -117,17 +118,25 @@ def vol():
     return generators.make_gyroid_volume({"vres": VRES})
 
 
+def blob_inputs(frame):
+    """The blobs of a frame (one per pass, differing in time), its MC tables
+    and its options keywords."""
+    kw = dict(FRAMES[frame], vres=VRES, **CAM)
+    blobs = [j_codec.encode(j_render_options(t=i * 0.333, **kw)) for i in range(kw["iter"])]
+    return blobs, np.asarray(js.make_mc_tables(kw["iter"], seed=3)), kw
+
+
+def blob_digest(vol, blobs, tables, kw):
+    return jax_answers.digest(vol, tables, kw, np.frombuffer(b"".join(blobs), np.uint8))
+
+
 @pytest.fixture(scope="module", params=sorted(FRAMES))
 def jax_blob_frame(request, vol):
-    """The blobs of one frame (one per pass, differing in time), its MC
-    tables, and the JAX render_from_blobs over them (its brick table gives
-    the same image as none)."""
-    kw = dict(FRAMES[request.param], vres=VRES, **CAM)
-    blobs = [j_codec.encode(j_render_options(t=i * 0.333, **kw)) for i in range(kw["iter"])]
-    tables = np.asarray(js.make_mc_tables(kw["iter"], seed=3))
-    argb, acc = j_compat.render_from_blobs(blobs, vol, tables, accel=request.param == "ao")
-    return dict(blobs=blobs, tables=tables, argb=np.asarray(argb), acc=np.asarray(acc),
-                kw=kw)
+    """A frame's blobs and MC tables, and the JAX render_from_blobs over them
+    (its brick table gives the same image as none), from tests/jax_answers."""
+    blobs, tables, kw = blob_inputs(request.param)
+    return dict(blobs=blobs, tables=tables, kw=kw, **jax_answers.load(
+        f"codec-blobs-{request.param}", blob_digest(vol, blobs, tables, kw)))
 
 
 @pytest.mark.parametrize("accel", [True, False])

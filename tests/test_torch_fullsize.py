@@ -17,7 +17,9 @@ JAX render here is compiled.
   brick table) over rows 256-271, 8192 pixels: the JAX package's
   `render_pass(ids=...)` at its default tiles under `jax.jit`, against the
   port's `render_passes(pix_lo=..., pix_count=8192)` (K2's and K2c's plain
-  version), for `ao` and `metal` (3 bounces).
+  version), for `ao` and `metal` (3 bounces). The JAX pass is read from
+  tests/jax_answers (`python tests/jax_answers.py regen fullsize-band-ao`
+  computes it again).
 - The full-size references under raymarchcl_tpu_torch/refs/: whole frames
   of the JAX package's `render_image` on the CPU (its banded, deferred and
   stacked path) over `api.build_accel_for`'s brick table, which
@@ -34,16 +36,17 @@ JAX render here is compiled.
   ray directions.
 """
 
-import hashlib
 import json
 import os
 import sys
 import time
-import zipfile
 
 import numpy as np
 import pytest
 import torch
+
+import jax_answers
+from jax_answers import save_npz, sha256
 
 torch.set_num_threads(1)
 
@@ -94,23 +97,6 @@ def kept_ids(ref):
     r0, nr = ref["rows"]
     return (np.arange(r0 * w, (r0 + nr) * w, dtype=np.int32),
             np.arange(0, w * h, SAMPLE_STRIDE, dtype=np.int32))
-
-
-def sha256(path):
-    with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def save_npz(path, **arrays):
-    """An .npz that np.load reads, its members LZMA-compressed (a fifth
-    smaller than np.savez_compressed's deflate on these accums) with fixed
-    zip timestamps, so equal arrays give equal bytes."""
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_LZMA) as z:
-        for name, a in arrays.items():
-            info = zipfile.ZipInfo(f"{name}.npy", date_time=(1980, 1, 1, 0, 0, 0))
-            info.compress_type = zipfile.ZIP_LZMA
-            with z.open(info, "w") as f:
-                np.lib.format.write_array(f, np.ascontiguousarray(a), allow_pickle=False)
 
 
 def write_reference(name, argb, acc, out_dir):
@@ -279,31 +265,51 @@ def jax_band(gyroid, compiled=True, tiles=None, **kw):
         api.build_accel_for(gyroid, jo)))
 
 
-def band_pass(gyroid, port_scene, **kw):
-    """(jax_band's compiled accum, the port's plain version's of the same
-    pixels). The JAX pass runs in a thread beside the port's (both release
-    the GIL), which halves the wall time."""
-    from concurrent.futures import ThreadPoolExecutor
+def band_digest(gyroid, **kw):
+    """The inputs digest of jax_band: the volume, pass 15's MC table, the
+    options and the pass's time, the band's pixel ids."""
+    from raymarchcl_tpu_torch.ops.sampling import make_mc_tables
 
+    ref = dict(REFS["ao-512"], opts=dict(REFS["ao-512"]["opts"], **kw))
+    lo = ROW0 * WIDTH
+    return jax_answers.digest(gyroid, make_mc_tables(16, seed=0)[PASS],
+                              dict(ref, time=PASS * 0.333),
+                              np.arange(lo, lo + ROWS * WIDTH, dtype=np.int32))
+
+
+def port_band(port_scene, **kw):
+    """The port's plain version's accum of jax_band's pixels."""
     from raymarchcl_tpu_torch.ops import render as t_render
     from raymarchcl_tpu_torch.ops.sampling import make_mc_tables
 
     ref = dict(REFS["ao-512"], opts=dict(REFS["ao-512"]["opts"], **kw))
+    vol, bricks = port_scene
+    acc = torch.zeros((ROWS * WIDTH, 3))
+    # render.TIME_STEP_INIT, as render_image's times
+    t_render.render_passes(vol, _port_options(ref), make_mc_tables(16, seed=0)[PASS:PASS + 1],
+                           [np.float32(PASS * 0.333)], acc, bricks, pix_lo=ROW0 * WIDTH,
+                           pix_count=ROWS * WIDTH)
+    return acc.numpy()
+
+
+def band_pass(gyroid, port_scene, **kw):
+    """(jax_band's compiled accum, port_band). The JAX pass runs in a thread
+    beside the port's (both release the GIL), which halves the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
     with ThreadPoolExecutor(1) as pool:
         j_acc = pool.submit(jax_band, gyroid, **kw)
-        vol, bricks = port_scene
-        acc = torch.zeros((ROWS * WIDTH, 3))
-        # render.TIME_STEP_INIT, as render_image's times
-        t_render.render_passes(vol, _port_options(ref), make_mc_tables(16, seed=0)[PASS:PASS + 1],
-                               [np.float32(PASS * 0.333)], acc, bricks, pix_lo=ROW0 * WIDTH,
-                               pix_count=ROWS * WIDTH)
-        return j_acc.result(), acc.numpy()
+        acc = port_band(port_scene, **kw)
+        return j_acc.result(), acc
 
 
 @pytest.fixture(scope="module", params=["ao", "metal"])
 def band(request, gyroid, port_scene):
-    j_acc, acc = band_pass(gyroid, port_scene, mat=request.param)
-    return dict(mat=request.param, jax=j_acc, port=acc)
+    """The port's plain version and the JAX package's compiled pass on the
+    band (its answer from tests/jax_answers)."""
+    mat = request.param
+    want = jax_answers.load(f"fullsize-band-{mat}", band_digest(gyroid, mat=mat))
+    return dict(mat=mat, jax=want["acc"], port=port_band(port_scene, mat=mat))
 
 
 def test_band_matches_jax(band):

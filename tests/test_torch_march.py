@@ -4,20 +4,17 @@ test on rays that start on a slab plane, and the march hazards (the two iso
 tests, saturating voxel-coordinate and object-id casts, NaN-suppressing
 fmin/fmax)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators
 from raymarchcl_tpu.ops import march as jm
 from raymarchcl_tpu.ops import sampling as js
-from raymarchcl_tpu.ops import shade as jsh
-from raymarchcl_tpu.ops.camera import camera_ray_lookat as j_camera
 from raymarchcl_tpu.ops.camera import compute_eyepos
 from raymarchcl_tpu.ops.vecmath import V3 as JV3
-from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.ops import march as tm
 from raymarchcl_tpu_torch.ops import shade as tsh
 from raymarchcl_tpu_torch.ops.vecmath import V3, dot, normalize
@@ -26,7 +23,6 @@ from raymarchcl_tpu_torch.options import render_options
 torch.set_num_threads(1)
 
 W, H = 32, 24
-N = W * H
 VRES = [32, 32, 96]
 BUDGETS = {"reduced": dict(maxIter=48, maxVoxelIter=96, shadowIter=48), "default": {}}
 
@@ -39,6 +35,33 @@ def _tv(v):
     return V3(*(_t(c) for c in v))
 
 
+def _np3(v):
+    return np.stack([c.numpy() for c in v])
+
+
+def frame_kw(budget):
+    """The 32x24 frame's options at `budget` (a key of BUDGETS)."""
+    return dict(width=W, height=H, vres=VRES, mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
+                targetpos=[0, -0.4, 0], **BUDGETS[budget])
+
+
+def port_march(vol, to, rays, accel=None):
+    """The port's smooth march of `rays` (p and d, (3, N) each)."""
+    return tm.raymarch(_t(vol), to, _tv(rays["p"]), _tv(rays["d"]), to.maxDist, to.maxIter,
+                       torch.ones(rays["p"].shape[1], dtype=torch.bool), accel=accel)
+
+
+def shadow_rays(to, isec):
+    """(hit, origin, direction, length) of the shadow rays (truncated to
+    maxDist) from the hits of `isec` toward the light."""
+    hit = isec["distance"] < 30
+    lp = V3(*(torch.full(hit.shape, float(v)) for v in to.lightPos[0, :3]))
+    delta = lp - isec["pos"]
+    ldir = normalize(delta)
+    lmax = torch.minimum(torch.sqrt(dot(delta, delta)) - to.shadowBias, to.maxDist)
+    return hit, V3(*(c + dc * 0.1 for c, dc in zip(isec["pos"], ldir))), ldir, lmax
+
+
 @pytest.fixture(scope="module")
 def vol():
     return generators.make_gyroid_volume({"vres": VRES})
@@ -46,26 +69,14 @@ def vol():
 
 @pytest.fixture(scope="module", params=sorted(BUDGETS))
 def primary(request, vol):
-    """Camera rays of a 32x24 frame marched by both packages."""
-    kw = dict(width=W, height=H, vres=VRES, mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
-              targetpos=[0, -0.4, 0], **BUDGETS[request.param])
-    jo, to = j_render_options(**kw), render_options(**kw)
-    table = np.array(js.generate_scatter_offsets(seed=3))
-
-    @jax.jit
-    def jfn(o, vol, table_t):
-        st = js.init_render_state(o, table_t, jnp.arange(N, dtype=jnp.int32))
-        p, d = j_camera(o, st)
-        i = jm.raymarch(vol, o, p, d, o.maxDist, o.maxIter, smooth=True,
-                        active=jnp.ones(N, bool))
-        return p, d, i["object_id"], i["distance"], i["pos"], i["normal"]
-
-    jp, jd, jid, jdist, jpos, jn = jfn(jo, jnp.asarray(vol), js.transpose_table(jnp.asarray(table)))
-    p, d = _tv(jp), _tv(jd)  # the same rays go into the port
-    isec = tm.raymarch(_t(vol), to, p, d, to.maxDist, to.maxIter, torch.ones(N, dtype=torch.bool))
-    want = dict(object_id=np.asarray(jid), distance=np.asarray(jdist),
-                pos=[np.asarray(c) for c in jpos], normal=[np.asarray(c) for c in jn])
-    return dict(jo=jo, to=to, vol=vol, isec=isec, want=want, p=p, d=d)
+    """Camera rays of a 32x24 frame marched by both packages (the JAX
+    package's rays go into the port)."""
+    kw = frame_kw(request.param)
+    to = render_options(**kw)
+    want = jax_answers.load(f"march-primary-{request.param}", jax_answers.digest(
+        vol, np.array(js.generate_scatter_offsets(seed=3)), kw))
+    return dict(kw=kw, budget=request.param, to=to, vol=vol, want=want,
+                isec=port_march(vol, to, want))
 
 
 def test_primary_object_ids_and_hits_exact(primary):
@@ -92,20 +103,12 @@ def test_primary_distance_pos_normal(primary):
 def test_shadow_rays_exact(primary):
     """Shadow rays (truncate_to_max_dist) from the primary hits toward the
     light: the 0/1 shadow factor is exact."""
-    jo, to, vol, isec = primary["jo"], primary["to"], primary["vol"], primary["isec"]
-    hit = isec["distance"] < 30
-    lp = V3(*(torch.full((N,), float(v)) for v in to.lightPos[0, :3]))
-    delta = lp - isec["pos"]
-    ldir = normalize(delta)
-    lmax = torch.minimum(torch.sqrt(dot(delta, delta)) - to.shadowBias, to.maxDist)
-    origin = V3(*(c + dc * 0.1 for c, dc in zip(isec["pos"], ldir)))
+    to, vol, isec = primary["to"], primary["vol"], primary["isec"]
+    hit, origin, ldir, lmax = shadow_rays(to, isec)
     got = tsh.shadow(_t(vol), to, origin, ldir, lmax, hit)
-    j_ldir = JV3(*(jnp.asarray(c.numpy()) for c in ldir))
-    j_origin = JV3(*(jnp.asarray(c.numpy()) for c in origin))
-    want = jax.jit(lambda o, v, org, ld, lm, a: jsh.shadow(v, o, org, ld, lm, a))(
-        jo, jnp.asarray(vol), j_origin, j_ldir, jnp.asarray(lmax.numpy()),
-        jnp.asarray(hit.numpy()))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = jax_answers.load(f"march-shadow-{primary['budget']}", jax_answers.digest(
+        vol, None, primary["kw"], hit, _np3(origin), _np3(ldir), lmax))
+    np.testing.assert_array_equal(got.numpy(), want["shadow"])
     assert 0 < float(got[hit].mean()) < 1  # lit and shadowed points present
 
 
@@ -136,43 +139,58 @@ def test_two_iso_tests():
     """Occupancy for normals is v >= isoVal (march.py:184); the march hit is
     v > isoVal (march.py:359). A voxel of exactly isoVal is occupied but
     never hit."""
-    vres = [8, 8, 8]
-    o, jo = render_options(vres=vres), j_render_options(vres=vres)
+    vol, q, p0, delta = iso_inputs()
+    o = render_options(vres=ISO_VRES)
+    want = jax_answers.load("march-iso-tests", jax_answers.digest(
+        vol, None, dict(vres=ISO_VRES), _np3(q), _np3(p0), _np3(delta)))
+    occ = tm.occupancy_i(_t(vol), o, q)
+    np.testing.assert_array_equal(occ.numpy(), [1.0, 1.0, 0.0])
+    np.testing.assert_array_equal(occ.numpy(), want["occ"])
+    # march along +x through both voxels: the 32 is passed, the 33 is hit
+    hit, k = tm.march_volume(_t(vol), o, p0, delta, 32, torch.tensor([True]))
+    assert bool(hit[0]) and int(k[0]) == 10  # x = 10/16 * 8 = 5
+    assert bool(want["hit"][0]) == bool(hit[0]) and int(want["k"][0]) == int(k[0])
+
+
+ISO_VRES = [8, 8, 8]
+
+
+def iso_inputs():
+    """A volume with one voxel of exactly isoVal and one above it, three
+    voxels to test, and a ray along +x through both."""
     vol = np.zeros(512, np.uint8)
     vol[4 * 64 + 4 * 8 + 2] = 32  # == isoVal
     vol[4 * 64 + 4 * 8 + 5] = 33  # > isoVal
     q = V3(*(torch.tensor(v) for v in ([2, 5, 3], [4, 4, 4], [4, 4, 4])))
-    occ = tm.occupancy_i(_t(vol), o, q)
-    np.testing.assert_array_equal(occ.numpy(), [1.0, 1.0, 0.0])
-    np.testing.assert_array_equal(
-        occ.numpy(), np.asarray(jm.occupancy_i(jnp.asarray(vol), jo, JV3(*(jnp.asarray(c.numpy()) for c in q)))))
-    # march along +x through both voxels: the 32 is passed, the 33 is hit
     p0 = V3(torch.tensor([0.01]), torch.tensor([4.5 / 8]), torch.tensor([4.5 / 8]))
     delta = V3(torch.tensor([1 / 16]), torch.tensor([0.0]), torch.tensor([0.0]))
-    hit, k = tm.march_volume(_t(vol), o, p0, delta, 32, torch.tensor([True]))
-    jhit, jk = jm.march_volume(jnp.asarray(vol), jo, JV3(*(jnp.asarray(c.numpy()) for c in p0)),
-                               JV3(*(jnp.asarray(c.numpy()) for c in delta)), 32,
-                               jnp.asarray([True]))
-    assert bool(hit[0]) and int(k[0]) == 10  # x = 10/16 * 8 = 5
-    assert bool(jhit[0]) == bool(hit[0]) and int(jk[0]) == int(k[0])
+    return vol, q, p0, delta
 
 
 def test_saturating_casts():
     """voxel_coord and the object id truncate with XLA's saturating convert
     (NaN -> 0); torch's own cast gives INT_MIN for both."""
-    o, jo = render_options(vres=[64, 64, 64]), j_render_options(vres=[64, 64, 64])
-    x = np.array([np.nan, 1e10, -1e10, 0.5, -0.01, 3e38], np.float32)
+    o = render_options(vres=CAST_VRES)
+    x, p, d = cast_inputs()
+    vol = np.zeros(64**3, np.uint8)
+    want = jax_answers.load("march-saturating-casts", jax_answers.digest(
+        vol, None, dict(vres=CAST_VRES), x, _np3(p), _np3(d)))
     got = tm.voxel_coord(o, V3(_t(x), _t(x[::-1]), _t(x)))
-    want = jm.voxel_coord(jo, JV3(jnp.asarray(x), jnp.asarray(x[::-1]), jnp.asarray(x)))
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for g, w in zip(got, want["coord"]):
+        np.testing.assert_array_equal(g.numpy(), w)
     # a ray far below the ground: its "material" is its own distance
     # (renderer.cl:211), far outside the int32 range
+    isec = tm.raymarch(_t(vol), o, p, d, 30.0, 4, torch.tensor([True]), want_normal=False)
+    assert int(isec["object_id"][0]) == int(want["object_id"][0]) == -(2**31)
+
+
+CAST_VRES = [64, 64, 64]
+
+
+def cast_inputs():
+    """Floats that a cast to int32 saturates (NaN among them), and a ray far
+    below the ground."""
+    x = np.array([np.nan, 1e10, -1e10, 0.5, -0.01, 3e38], np.float32)
     p = V3(torch.tensor([0.0]), torch.tensor([-3e9]), torch.tensor([0.0]))
     d = V3(torch.tensor([0.0]), torch.tensor([1.0]), torch.tensor([0.0]))
-    vol = np.zeros(64**3, np.uint8)
-    isec = tm.raymarch(_t(vol), o, p, d, 30.0, 4, torch.tensor([True]), want_normal=False)
-    jisec = jm.raymarch(jnp.asarray(vol), jo, JV3(*(jnp.asarray(c.numpy()) for c in p)),
-                        JV3(*(jnp.asarray(c.numpy()) for c in d)), 30.0, 4, smooth=False,
-                        active=jnp.asarray([True]), want_normal=False)
-    assert int(isec["object_id"][0]) == int(jisec["object_id"][0]) == -(2**31)
+    return x, p, d

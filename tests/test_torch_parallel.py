@@ -7,19 +7,17 @@ A tiled render must equal the port's single-device render bit for bit
 with it to float32 reassociation (tests/test_parallel.py's tolerance), and
 the port's tiled and spp-sharded renders, and its plain pixel-range pass,
 must agree with the JAX package's on the 8-device CPU mesh at the port's
-parity tolerance."""
+parity tolerance (the JAX package's frames read from tests/jax_answers)."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators as j_generators
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as j_sampling
 from raymarchcl_tpu.options import render_options as j_render_options
-from raymarchcl_tpu.parallel import tiling as j_tiling
 from raymarchcl_tpu_torch.convert import tables_from_numpy, volume_from_numpy
 from raymarchcl_tpu_torch.models import generators
 from raymarchcl_tpu_torch.ops import accel, render, sampling
@@ -324,6 +322,19 @@ def _small(n_passes):
     return vol, tables, j_render_options(**kw), render_options(**kw)
 
 
+def _jax_answer(name, vol, tables, *more):
+    kw = dict(SMALL, iter=len(tables))
+    return jax_answers.load(name, jax_answers.digest(vol, tables, kw, *more))
+
+
+def ragged_ids(n):
+    """From mid-row of the 24x16 frame (x=14) past its last pixel: 34 frame
+    pixels, then 16 pad rows at min(lo + i, N - 1); and two passes' times."""
+    lo, count = 350, 50
+    return (np.minimum(np.arange(lo, lo + count), n - 1).astype(np.int32),
+            np.arange(2, dtype=np.float32) * np.float32(0.333))
+
+
 def _parity(got, want):
     ok = np.isclose(got, want, **PARITY).all(axis=1)
     assert ok.mean() >= MIN_OK, f"{(~ok).sum()}/{ok.size} pixels diverged"
@@ -332,22 +343,19 @@ def _parity(got, want):
 def test_tiled_matches_jax_8_device_mesh():
     assert len(jax.devices()) == 8
     vol, tables, jo, opts = _small(2)
-    j_argb, j_acc = j_tiling.render_image_tiled(jnp.asarray(vol), jo, jnp.asarray(tables),
-                                                mesh=j_tiling.make_mesh())
+    want = _jax_answer("parallel-tiled", vol, tables)
     argb, acc = tiling.render_image_tiled(volume_from_numpy(vol), opts,
                                           tables_from_numpy(tables), mesh=_cpus(8))
-    assert argb.shape == np.asarray(j_argb).shape and acc.shape == np.asarray(j_acc).shape
-    _parity(acc.numpy(), np.asarray(j_acc))
+    assert argb.shape == want["argb"].shape and acc.shape == want["acc"].shape
+    _parity(acc.numpy(), want["acc"])
     assert len(np.unique(argb)) > 16  # a real image
 
 
 def test_spp_sharded_matches_jax_8_device_mesh():
     vol, tables, jo, opts = _small(8)
-    _, j_acc = j_tiling.render_image_spp_sharded(jnp.asarray(vol), jo, jnp.asarray(tables),
-                                                 mesh=j_tiling.make_mesh())
     _, acc = tiling.render_image_spp_sharded(volume_from_numpy(vol), opts,
                                              tables_from_numpy(tables), mesh=_cpus(8))
-    _parity(acc.numpy(), np.asarray(j_acc))
+    _parity(acc.numpy(), _jax_answer("parallel-spp-sharded", vol, tables)["acc"])
 
 
 def test_pixel_range_plain_matches_jax_ids():
@@ -355,15 +363,10 @@ def test_pixel_range_plain_matches_jax_ids():
     pixel) against the JAX package's render_accum over the same global
     ids, min(lo + i, N - 1)."""
     vol, tables, jo, opts = _small(2)
-    n, lo, count = opts.num_pixels, 350, 50  # 34 frame pixels from x=14, 16 pad rows
-    ids = np.minimum(np.arange(lo, lo + count), n - 1).astype(np.int32)
-    times = np.arange(2, dtype=np.float32) * np.float32(0.333)
-    want = np.asarray(j_render.render_accum(jnp.asarray(vol).reshape(-1), jo,
-                                            jnp.asarray(tables), jnp.asarray(times),
-                                            jnp.zeros((count, 3), jnp.float32),
-                                            jnp.asarray(ids)))
+    ids, times = ragged_ids(opts.num_pixels)
+    want = _jax_answer("parallel-pixel-range", vol, tables, ids, times)["acc"]
     got = k2.render_passes(volume_from_numpy(vol), opts, tables_from_numpy(tables),
-                           torch.from_numpy(times), torch.zeros((count, 3)), pix_lo=lo,
-                           pix_count=count)
+                           torch.from_numpy(times), torch.zeros((len(ids), 3)),
+                           pix_lo=int(ids[0]), pix_count=len(ids))
     _parity(got.numpy(), want)
     assert torch.equal(got[34:], got[33:34].expand(16, 3))  # pad rows: pixel N-1 again

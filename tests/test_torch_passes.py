@@ -7,16 +7,14 @@ parameter block."""
 import os
 import re
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators as j_generators
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as js
 from raymarchcl_tpu.ops.camera import compute_eyepos
-from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.convert import tables_from_numpy, volume_from_numpy
 from raymarchcl_tpu_torch.models import generators
 from raymarchcl_tpu_torch.ops import accel
@@ -25,7 +23,6 @@ from raymarchcl_tpu_torch.ops.kernels import build
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
 from raymarchcl_tpu_torch.ops.kernels.tonemap import tonemap_pack_plain
 from raymarchcl_tpu_torch.options import render_options
-from raymarchcl_tpu_torch.scripts import profile_frame
 
 torch.set_num_threads(1)
 
@@ -106,11 +103,15 @@ def test_stop_bit_sample_test_equals_iso(name, edge):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.fixture(scope="module")
-def scene():
+def scene_inputs():
     vol = j_generators.make_gyroid_volume({"vres": VRES})
     tables = np.asarray(js.make_mc_tables(SMALL["iter"], seed=3))
     return vol, tables
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return scene_inputs()
 
 
 def test_render_passes_equals_single_passes_and_jax(scene):
@@ -129,9 +130,8 @@ def test_render_passes_equals_single_passes_and_jax(scene):
         k2.render_passes(vol, opts, tables[:1], times[:1], split, acc_t)
         k2.render_passes(vol, opts, tables[1:], times[1:], split, acc_t)
         assert torch.equal(both, split)
-    _, j_acc = j_render.render_image(jnp.asarray(vol_np), j_render_options(**SMALL),
-                                     jnp.asarray(tables_np), accel=None)
-    ok = np.isclose(both.numpy(), np.asarray(j_acc), rtol=5e-3, atol=5e-3).all(axis=1)
+    j_acc = jax_answers.load("passes-frame", jax_answers.digest(vol_np, tables_np, SMALL))["acc"]
+    ok = np.isclose(both.numpy(), j_acc, rtol=5e-3, atol=5e-3).all(axis=1)
     assert ok.mean() >= 0.995, f"{(~ok).sum()}/{ok.size} pixels diverged"
     assert float(both.abs().sum()) > 0
 
@@ -205,24 +205,3 @@ def test_render_passes_argb_packs_final_accum(scene):
     assert torch.equal(argb, tonemap_pack_plain(acc, opts.gamma))
     assert len(torch.unique(argb)) == 1 and (k2.LAUNCHES, k2.PACKS) == before
 
-
-def test_profile_idle_by_place():
-    """profile_frame's reading of a chrome trace: idle time before, between
-    and after a frame's device events, overlaps merged, host events and
-    events outside the frames ignored."""
-    def ev(name, cat, ts, dur):
-        return {"name": name, "cat": cat, "ph": "X", "ts": ts, "dur": dur}
-
-    events = [
-        ev(profile_frame.FRAME, "user_annotation", 100.0, 100.0),
-        ev(profile_frame.FRAME, "gpu_user_annotation", 110.0, 80.0),
-        ev("cudaLaunchKernel", "cuda_runtime", 101.0, 5.0),
-        ev("fill", "gpu_memset", 110.0, 5.0),  # before: 10
-        ev("k2", "kernel", 120.0, 50.0),  # between: 5
-        ev("k1", "kernel", 160.0, 20.0),  # overlaps k2
-        ev("copy", "gpu_memcpy", 185.0, 5.0),  # between: 5; after: 10
-        ev("other", "kernel", 300.0, 10.0),  # outside every frame
-        ev(profile_frame.FRAME, "user_annotation", 400.0, 10.0),  # no device event
-    ]
-    got = profile_frame.idle_by_place(events)
-    assert got == {"before": 20.0, "between": 10.0, "after": 10.0, "busy": 70.0, "wall": 110.0}

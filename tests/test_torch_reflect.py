@@ -3,7 +3,8 @@ port against the JAX package's plain path (accel=None): the fast voxel
 normal, the sphere trace with it (smooth=False), the bounce directions and
 origins, and one bounce's colour (basic_scene_color); and reflective frames
 with and without the brick table. Whole frames against the JAX package are
-in test_torch_reflect_frame.py."""
+in test_torch_reflect_frame.py. The JAX package's march and bounce colours
+are read from tests/jax_answers."""
 
 import jax
 import jax.numpy as jnp
@@ -11,11 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators
 from raymarchcl_tpu.ops import march as jm
 from raymarchcl_tpu.ops import sampling as js
-from raymarchcl_tpu.ops import shade as jsh
-from raymarchcl_tpu.ops.camera import camera_ray_lookat as j_camera
 from raymarchcl_tpu.ops.camera import compute_eyepos
 from raymarchcl_tpu.ops.vecmath import V3 as JV3
 from raymarchcl_tpu.ops.vecmath import reflect as j_reflect
@@ -73,32 +73,34 @@ def test_voxel_normal_fast_bit_equal():
     assert flat[-1] and flat.sum() > 1 and not flat.all()  # +y: far outside and inside
 
 
+def fast_march_kw(budget):
+    """The 24x16 `metal` frame's options at `budget` (reduced or default)."""
+    return dict(width=24, height=16, vres=VRES, mat="metal",
+                eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0],
+                **(REDUCED if budget == "reduced" else {}))
+
+
+def jax_isec(answer):
+    """The JAX package's march from its stored answer (`isec_*` arrays), as
+    the JAX package returns it: jnp arrays, V3 where (3, N)."""
+    return {k[5:]: JV3(*map(jnp.asarray, v)) if v.ndim == 2 else jnp.asarray(v)
+            for k, v in answer.items() if k.startswith("isec_")}
+
+
 @pytest.fixture(scope="module", params=["reduced", "default"])
 def fast_march(request, vol):
     """Camera rays of a 24x16 frame traced by both packages with the fast
     normal (the bounce marches' smooth=False)."""
-    w, h = 24, 16
-    n = w * h
-    kw = dict(width=w, height=h, vres=VRES, mat="metal",
-              eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0],
-              **(REDUCED if request.param == "reduced" else {}))
+    kw = fast_march_kw(request.param)
     table = np.array(js.generate_scatter_offsets(seed=3))
-
-    @jax.jit
-    def jfn(o, v, table_t):
-        st = js.init_render_state(o, table_t, jnp.arange(n, dtype=jnp.int32))
-        p, d = j_camera(o, st)
-        i = jm.raymarch(v, o, p, d, o.maxDist, o.maxIter, smooth=False,
-                        active=jnp.ones(n, bool))
-        return p, d, st["px"], st["py"], i
-
+    ans = jax_answers.load(f"reflect-fast-march-{request.param}",
+                           jax_answers.digest(vol, table, kw))
     to = render_options(**kw)
-    jp, jd, px, py, ji = jfn(j_render_options(**kw), jnp.asarray(vol),
-                             js.transpose_table(jnp.asarray(table)))
-    d = _tv(jd)  # the same rays go into the port
-    isec = tm.raymarch(_t(vol), to, _tv(jp), d, to.maxDist, to.maxIter,
-                       torch.ones(n, dtype=torch.bool), smooth=False)
-    return dict(to=to, d=d, px=_t(px), py=_t(py), isec=isec, want=ji, table=table)
+    d = _tv(ans["d"])  # the same rays go into the port
+    isec = tm.raymarch(_t(vol), to, _tv(ans["p"]), d, to.maxDist, to.maxIter,
+                       torch.ones(d.x.shape[0], dtype=torch.bool), smooth=False)
+    return dict(budget=request.param, to=to, d=d, px=_t(ans["px"]), py=_t(ans["py"]), isec=isec,
+                want=jax_isec(ans), table=table)
 
 
 def test_raymarch_fast_normal_matches_jax(fast_march):
@@ -112,6 +114,19 @@ def test_raymarch_fast_normal_matches_jax(fast_march):
     np.testing.assert_allclose(isec["distance"].numpy(), np.asarray(want["distance"]),
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(_np3(isec["pos"]), _np3(want["pos"]), rtol=1e-6, atol=1e-6)
+
+
+def bounce_kw(mat, to):
+    """The bounce's options: the frame's at `to`'s budgets, preset `mat`."""
+    return dict(width=24, height=16, vres=VRES, mat=mat, eyepos=compute_eyepos(135, 2.25, 0.35),
+                targetpos=[0, -0.4, 0], maxIter=to.maxIter, maxVoxelIter=to.maxVoxelIter,
+                shadowIter=to.shadowIter)
+
+
+def bounce_digest(vol, fm, mat, rays):
+    r_dir, origin, act = rays
+    return jax_answers.digest(vol, fm["table"], bounce_kw(mat, fm["to"]), np.stack(r_dir),
+                              np.stack(origin), act, fm["px"], fm["py"])
 
 
 def _bounce_rays(fm):
@@ -150,23 +165,18 @@ def test_basic_scene_color_matches_jax(fast_march, vol, mat):
     reflection, atmosphere from the bounce origin) from the same rays in
     both packages: object ids exact, colours within the parity tolerance."""
     fm = fast_march
-    kw = dict(width=24, height=16, vres=VRES, mat=mat, eyepos=compute_eyepos(135, 2.25, 0.35),
-              targetpos=[0, -0.4, 0], maxIter=fm["to"].maxIter,
-              maxVoxelIter=fm["to"].maxVoxelIter, shadowIter=fm["to"].shadowIter)
-    jo, to = j_render_options(**kw), render_options(**kw)
-    r_dir, origin, act = _bounce_rays(fm)
-    table = fm["table"]
-    jcol, jisec = jax.jit(
-        lambda o, v, t, px, py, p, d, a: jsh.basic_scene_color(v, o, t, px, py, p, d, a))(
-        jo, jnp.asarray(vol), js.transpose_table(jnp.asarray(table)),
-        jnp.asarray(fm["px"].numpy()), jnp.asarray(fm["py"].numpy()), origin, r_dir, act)
-    col, isec = tsh.basic_scene_color(_t(vol), to, _t(table), fm["px"], fm["py"], _tv(origin),
-                                      _tv(r_dir), _t(act))
+    to = render_options(**bounce_kw(mat, fm["to"]))
+    rays = _bounce_rays(fm)
+    r_dir, origin, act = rays
+    ans = jax_answers.load(f"reflect-bounce-{fm['budget']}-{mat}",
+                           bounce_digest(vol, fm, mat, rays))
+    col, isec = tsh.basic_scene_color(_t(vol), to, _t(fm["table"]), fm["px"], fm["py"],
+                                      _tv(origin), _tv(r_dir), _t(act))
     a = np.asarray(act)
-    np.testing.assert_array_equal(isec["object_id"].numpy()[a], np.asarray(jisec["object_id"])[a])
-    got, want = _np3(col)[a], _np3(jcol)[a]
+    np.testing.assert_array_equal(isec["object_id"].numpy()[a], ans["object_id"][a])
+    got, want = _np3(col)[a], ans["colour"].T[a]
     assert np.isclose(got, want, **TOL).all(), np.abs(got - want).max()
-    bounce_hit = np.asarray(jisec["object_id"])[a] >= 0
+    bounce_hit = ans["object_id"][a] >= 0
     assert 0 < bounce_hit.mean() < 1  # bounces that hit and bounces that miss
 
 

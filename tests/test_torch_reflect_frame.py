@@ -2,18 +2,16 @@
 `orange-stripes`): the PyTorch port's render_image (K2's plain version, the
 spp blend and K1's plain pack) against the JAX package's plain render
 (`render_image(accel=None)`, a single band below 8192 pixels), one JAX
-render per preset."""
+render per preset, read from tests/jax_answers."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from raymarchcl_tpu.models import generators
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as js
 from raymarchcl_tpu.ops.camera import compute_eyepos
-from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch.convert import tables_from_numpy, volume_from_numpy
 from raymarchcl_tpu_torch.ops import render as t_render
 from raymarchcl_tpu_torch.options import render_options
@@ -38,9 +36,8 @@ def jax_frame(request, vol):
     table both packages take."""
     kw = dict(FRAME, mat=request.param)
     tables = np.asarray(js.make_mc_tables(1, seed=3))
-    argb, acc = j_render.render_image(jnp.asarray(vol), j_render_options(**kw),
-                                      jnp.asarray(tables), accel=None)
-    return dict(kw=kw, tables=tables, argb=np.asarray(argb), acc=np.asarray(acc))
+    return dict(kw=kw, tables=tables, **jax_answers.load(f"reflect-frame-{request.param}",
+                                                         jax_answers.digest(vol, tables, kw)))
 
 
 def test_render_image_matches_jax(vol, jax_frame):

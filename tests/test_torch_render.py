@@ -8,21 +8,21 @@ volumes."""
 
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 import oracle_cache
 import scalar_ref
 from raymarchcl_tpu.models import generators
-from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops import sampling as js
 from raymarchcl_tpu.ops.camera import compute_eyepos
 from raymarchcl_tpu.options import render_options as j_render_options
 from raymarchcl_tpu_torch import api
 from raymarchcl_tpu_torch.convert import tables_from_numpy, volume_from_numpy
 from raymarchcl_tpu_torch.io import imageio
+from raymarchcl_tpu_torch.models import generators as t_generators
 from raymarchcl_tpu_torch.ops import render as t_render
 from raymarchcl_tpu_torch.ops import sampling as t_sampling
 from raymarchcl_tpu_torch.ops.camera import camera_ray_lookat
@@ -53,20 +53,23 @@ def _rgb_diff(a, b):
     return d.mean(), (d > 8).mean()
 
 
+def case_kw(case):
+    return dict(vres=VRES, mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
+                targetpos=[0, -0.4, 0], **CASES[case])
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_render_image_matches_jax(vol, case):
-    kw = dict(vres=VRES, mat="ao", eyepos=compute_eyepos(135, 2.25, 0.35),
-              targetpos=[0, -0.4, 0], **CASES[case])
+    kw = case_kw(case)
     tables = np.asarray(js.make_mc_tables(kw["iter"], seed=3))  # one table for both
-    j_argb, j_acc = j_render.render_image(jnp.asarray(vol), j_render_options(**kw),
-                                          jnp.asarray(tables), accel=None)
+    ans = jax_answers.load(f"render-frame-{case}", jax_answers.digest(vol, tables, kw))
+    j_argb, j_acc = ans["argb"], ans["acc"]
     argb, acc = t_render.render_image(volume_from_numpy(vol), render_options(**kw),
                                       tables_from_numpy(tables))
-    j_acc = np.asarray(j_acc)
     assert argb.dtype == np.uint32 and argb.shape == (kw["height"], kw["width"])
     ok = np.isclose(acc.numpy(), j_acc, rtol=5e-3, atol=5e-3).all(axis=1)
     assert ok.mean() >= 0.995, f"{(~ok).sum()}/{ok.size} pixels diverged"
-    mad, off8 = _rgb_diff(argb, np.asarray(j_argb))
+    mad, off8 = _rgb_diff(argb, j_argb)
     assert mad < 0.15 and off8 < 0.005, (mad, off8)
     assert len(np.unique(argb)) > 16  # a real image
 
@@ -233,13 +236,19 @@ def test_accumulation_is_sequential_blend(vol):
 PIXEL_IDS = [3531, 3530, 3532]
 
 
+PIXEL_KW = dict(width=100, height=37, iter=1, vres=[256] * 3, mat="ao",
+                eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
+# the JAX package's compiled answers at PIXEL_IDS (tests/jax_answers.py)
+PIXEL_KEYS = ("px", "py", "mc_normal", "dir", "distance", "object_id", "ao_seed", "colour")
+
+
 def _pixel_case():
-    kw = dict(width=100, height=37, iter=1, vres=[256] * 3, mat="ao",
-              eyepos=compute_eyepos(135, 2.25, 0.35), targetpos=[0, -0.4, 0])
-    vol_np = generators.make_gyroid_volume({"vres": kw["vres"]})
+    """The 256^3 gyroid (the port's generator: the JAX package's numpy path,
+    which its native path leaves at one voxel), pass 0's MC table, and the
+    port's options at time 0."""
+    vol_np = t_generators.make_gyroid_volume({"vres": PIXEL_KW["vres"]})
     table = np.array(js.make_mc_tables(16, seed=0)[0])
-    return (vol_np, table, j_render_options(**kw).replace(time=jnp.float32(0.0)),
-            render_options(**kw).replace(time=torch.tensor(0.0)))
+    return vol_np, table, render_options(**PIXEL_KW).replace(time=torch.tensor(0.0))
 
 
 def _ao_seed_float(pos, t):
@@ -257,49 +266,23 @@ def test_pixel_3531_view_coordinates_decide_its_ao_seed():
     port lands on JAX's side, and its colour is JAX's. The ray directions
     still differ by up to 2 ulp where XLA:CPU's rsqrt estimate differs from
     1/sqrt, which the port does not copy."""
-    import jax
-
-    from raymarchcl_tpu.ops import camera as j_camera
-    from raymarchcl_tpu.ops import march as j_march
-    from raymarchcl_tpu.ops import shade as j_shade
     from raymarchcl_tpu_torch.ops import march as t_march
     from raymarchcl_tpu_torch.ops.camera import view_coords
     from raymarchcl_tpu_torch.ops.vecmath import V3, cross, normalize
 
-    vol_np, table, jo, to = _pixel_case()
-
-    @jax.jit
-    def j_view(opts, table_t, ids):  # raymarchcl_tpu/ops/camera.py:26-27
-        st = js.init_render_state(opts, table_t, ids)
-        w, h = opts.resolution
-        return (st["px"] / w * opts.fov - opts.fov * 0.5,
-                (st["py"] / h * opts.fov - opts.fov * 0.5) * (-opts.invAspect))
-
-    @jax.jit
-    def j_pixel(vol, opts, table_t, ids):
-        st = js.init_render_state(opts, table_t, ids)
-        pos, d = j_camera.camera_ray_lookat(opts, st)
-        isec = j_march.raymarch(vol, opts, pos, d, opts.maxDist, opts.maxIter, smooth=True,
-                                active=jnp.ones(ids.shape, bool))
-        p = isec["pos"]
-        s = p.x * 3183.75 + p.y * 1831.42 + p.z * 2945.87 + opts.time * 2671.918
-        col = j_shade.scene_color(vol, opts, table_t, st, pos, d)
-        return (st["px"], st["py"], st["mc_normal"].to_array(), d.to_array(),
-                isec["distance"], isec["object_id"], s, col.to_array())
-
-    table_t = js.transpose_table(jnp.asarray(table))
+    vol_np, table, to = _pixel_case()
+    ans = jax_answers.load("render-pixel-3531",
+                           jax_answers.digest(vol_np, table, PIXEL_KW, PIXEL_IDS))
     n = to.num_pixels
     st_all = t_sampling.init_render_state(to, torch.from_numpy(table), torch.arange(n))
     got = [x.numpy() for x in view_coords(to, st_all)]
-    want = [np.asarray(x) for x in j_view(jo, table_t, jnp.arange(n, dtype=jnp.int32))]
+    want = [ans["view_x"], ans["view_y"]]  # the view coordinates of every pixel
     assert all(np.array_equal(a, b) for a, b in zip(got, want))  # every pixel, both axes
     w, h = to.resolution
     written = (st_all["px"] / w * to.fov - to.fov * 0.5).numpy()
     assert (written != want[0]).mean() > 0.1  # the expression as written is not XLA's
 
-    jv = [np.asarray(x) for x in j_pixel(jnp.asarray(vol_np), jo, table_t,
-                                          jnp.asarray(PIXEL_IDS, jnp.int32))]
-    j_px, j_py, j_mcn, j_dir, j_dist, j_id, j_s, j_col = jv
+    j_px, j_py, j_mcn, j_dir, j_dist, j_id, j_s, j_col = (ans[k] for k in PIXEL_KEYS)
     vol = torch.from_numpy(vol_np)
     tab = torch.from_numpy(table)
     st = t_sampling.init_render_state(to, tab, torch.tensor(PIXEL_IDS))
