@@ -697,6 +697,9 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
   // the AO probe table follows the pass times (render_pass.launch_block)
   const float* ao_d = times + npass;
   const int* ao_trunc = reinterpret_cast<const int*>(ao_d + params->aoIter + 1);
+  // the work counter starts at 0 on the launch's stream, in order with it
+  e = cudaMemsetAsync(next_tile, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<blocks, kThreads, 0, stream>>>(*params, work, vol,
                                           reinterpret_cast<const float4*>(tables),
                                           times, ao_d, ao_trunc, npass, rows, accum, argb,
@@ -709,9 +712,9 @@ static int launch(const RmclParams* params, const uint8_t* vol, const float* tab
 // brick table, or null for the raw march; accum: pixCount rows of 3 floats,
 // row i pixel min(pixLo + i, width*height - 1); argb: null, or the pixCount
 // packed pixels of the final accum (with npass == 0, of accum as given); next_tile:
-// one zeroed int; counts: null, or 2*kCountedLoops zeroed uint64 for the
-// counting build (which needs the brick table). reflectIter > 0 selects the
-// reflective instances.
+// one int, which the launch zeroes on its stream before the kernel; counts: null,
+// or 2*kCountedLoops zeroed uint64 for the counting build (which needs the brick
+// table). reflectIter > 0 selects the reflective instances.
 template <bool kR>
 static int dispatch(const RmclParams* params, const uint8_t* vol, const float* tables,
                     const float* times, int npass, const int* rows, float* accum,

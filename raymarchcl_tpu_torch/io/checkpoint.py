@@ -98,9 +98,7 @@ def render_checkpointed(vol, opts, mc_tables, ckpt_path, chunk=8, times=None, pr
     vol = volume_on(vol, dev)
     tables = tables_on(mc_tables, dev)
     n_passes = tables.shape[0]
-    if times is None:
-        times = torch.arange(n_passes, dtype=torch.float32) * render_mod.TIME_STEP_INIT
-    times = pass_times(times)
+    times = pass_times(render_mod.default_times(n_passes) if times is None else times)
     if accel is not None and accel.rows.device != dev:
         accel = Accel(accel.rows.to(dev), accel.edge)
     digest = pass_digest(tables, times)

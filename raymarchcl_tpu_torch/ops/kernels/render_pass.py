@@ -17,15 +17,18 @@ parallel/tiling.py); a pixel keeps its global id, which seeds its passes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import operator
 
 import numpy as np
 import torch
 
 from ..accel import Accel, brick_dims, row_words
-from ..camera import camera_ray_lookat, view_scales
+from ..camera import camera_ray_lookat
 from ..sampling import init_render_state
 from ..shade import ao_step_dist, ao_trunc_steps, scene_color
 from ..vecmath import fma
+from ...options import DYNAMIC_FIELDS, RenderOpts
 from ...utils.metrics import span
 from . import build
 from .tonemap import tonemap_pack_plain
@@ -34,6 +37,9 @@ LAUNCHES = 0  # K2 launches (one per render_passes call; plain-version calls exc
 REFLECTIVE_LAUNCHES = 0  # those of LAUNCHES that ran the reflective instance (K2c)
 PACKS = 0  # K2 launches that also packed the image (K1's pack as their epilogue)
 BOUND_BYTES = 0  # bytes of the volume, MC tables and brick rows the last render_passes bound
+PLAN_BUILDS = 0  # parameter blocks whose static part was built (make_params)
+PLAN_HITS = 0  # parameter blocks that reused a static part already built
+BLOCK_UPLOADS = 0  # copies of launch_block's bytes to a card (the launches reuse them)
 
 # The loops the counting build counts, in the order of csrc/render_pass.cu's
 # CountedLoop: (warp iterations, active lanes) of each
@@ -72,6 +78,100 @@ class RmclParams(ctypes.Structure):
     ]
 
 
+# The options' dynamic fields the parameter block holds: (options field,
+# byte offset in the block, bytes, a ctypes type of that many bytes); with
+# the view factors and the pixel range, what a frame writes over the
+# block's static part
+_DYNAMIC = tuple((k, getattr(RmclParams, f).offset, getattr(RmclParams, f).size,
+                  ctypes.c_char * getattr(RmclParams, f).size) for k, f in (
+    ("eyePos", "eyePos"), ("targetPos", "targetPos"), ("up", "up"), ("skyColor1", "sky1"),
+    ("skyColor2", "sky2"),
+    *((k, k) for k in ("invAspect", "fov", "maxDist", "startDist", "eps", "aoAmp", "groundY",
+                       "shadowBias", "lightScatter", "minLightAtt", "exposure", "dof",
+                       "frameBlend", "fogPow", "flareAmp", "gamma")),
+    ("lightPos", "lightPos"), ("lightColor", "lightColor"), ("mat_albedo", "matAlbedo"),
+    ("mat_r0", "matR0"), ("mat_smoothness", "matSmooth")))
+_dynamic = operator.attrgetter(*(k for k, *_ in _DYNAMIC))
+_static = operator.attrgetter(*(f.name for f in dataclasses.fields(RenderOpts)
+                                if f.name not in DYNAMIC_FIELDS))
+_FOV = RmclParams.fov.offset // 4  # in float32 words
+_VIEW = RmclParams.viewScale.offset // 4  # viewScale[2], then viewHalf
+
+_PLANS = {}  # (the options' static fields, the brick edge or None) -> _Plan
+_BLOCKS = {}  # (device, stream, bytes of launch_block) -> the block on that device
+_NEXT_TILE = {}  # (device, stream) -> the int the launcher zeroes before each launch
+_CACHED = 64  # entries a cache holds before it starts afresh
+
+
+class _Plan:
+    """What a launch needs of options with these static fields and this
+    brick table's edge, built once: the parameter block with its static
+    fields set (the rest 0), the view factors' reciprocals and the AO
+    probes (`launch_block`)."""
+
+    def __init__(self, opts, accel):
+        if not 1 <= opts.numLights <= MAX_LIGHTS:
+            raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}] (the kernel's light "
+                             f"arrays; the JAX presets use 1 or 2), got {opts.numLights}")
+        if opts.aoIter < 0:
+            raise ValueError(f"aoIter must be >= 0, got {opts.aoIter}")
+        f32 = np.float32
+        p = RmclParams()
+        p.width, p.height = opts.resolution
+        p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
+        for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal",
+                  "reflectIter"):
+            setattr(p, k, getattr(opts, k))
+        p.tableLen = opts.mcTableLength
+        if accel is not None:
+            p.edge, p.brickShift = accel.edge, accel.edge.bit_length() - 1
+            p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
+            p.rowWords = row_words(accel.edge)
+        p.aoSteps = opts.maxVoxelIter // 2
+        p.marchScale = float(f32(1.0 / (opts.maxVoxelIter * 0.5)))
+        p.aoScale = float(f32(1.0 / (p.aoSteps * 0.5)))
+        f_min = min(a * b for a, b in zip(opts.invVoxelScale, opts.voxelBounds2))
+        p.shadowBaseStep = float(f32((2.0 / opts.maxVoxelIter) * f_min))
+        p.invNumLights = float(f32(1.0) / f32(opts.numLights))
+        p.voxelSize = float(f32(opts.voxelSize))
+        for dst, src in (("bmin", opts.voxelBoundsMin), ("bmax", opts.voxelBoundsMax),
+                         ("vb", opts.voxelBounds), ("vb2", opts.voxelBounds2),
+                         ("invS", opts.invVoxelScale)):
+            getattr(p, dst)[:] = [float(v) for v in np.asarray(src, np.float32)]
+        self.static = bytes(p)
+        w, h = opts.resolution
+        self.view = np.array([f32(1.0) / f32(w), f32(1.0) / f32(h), 0.5], np.float32)
+        self.ao = _ao_probes(opts)
+
+    def params(self, opts, pix_lo, pix_count) -> RmclParams:
+        # raw copies from the tensors' memory: no tensor op, so none that a
+        # profiler records
+        block = bytearray(self.static)
+        for t, (k, off, size, raw) in zip(_dynamic(opts), _DYNAMIC):
+            if (t.nbytes != size or t.dtype != torch.float32 or not t.is_cpu
+                    or not t.is_contiguous()):
+                raise ValueError(f"opts.{k} must be a contiguous float32 CPU tensor of "
+                                 f"{size // 4} values")
+            block[off:off + size] = raw.from_address(t.data_ptr())
+        words = np.frombuffer(block, np.float32)
+        words[_VIEW:_VIEW + 3] = words[_FOV] * self.view  # camera.view_scales
+        p = RmclParams.from_buffer(block)
+        p.pixLo, p.pixCount = pixel_range(opts, pix_lo, pix_count)
+        return p
+
+
+def _plan(opts, accel) -> _Plan:
+    global PLAN_BUILDS, PLAN_HITS
+    key = (_static(opts), None if accel is None else accel.edge)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        PLAN_HITS += 1
+        return plan
+    plan = _cached(_PLANS, key, lambda: _Plan(opts, accel))
+    PLAN_BUILDS += 1
+    return plan
+
+
 def make_params(opts, accel: Accel | None = None, pix_lo: int = 0,
                 pix_count: int | None = None) -> RmclParams:
     """The kernel's parameter block, one per launch (the pass times and AO
@@ -79,52 +179,10 @@ def make_params(opts, accel: Accel | None = None, pix_lo: int = 0,
     exactly as the plain version computes them. The brick fields stay 0
     without a brick table; reflectIter > 0 selects the reflective
     instance; the launch renders the pixel range `pixel_range(opts, pix_lo,
-    pix_count)` gives."""
-    if not 1 <= opts.numLights <= MAX_LIGHTS:
-        raise ValueError(f"numLights must be in [1, {MAX_LIGHTS}] (the kernel's light arrays; "
-                         f"the JAX presets use 1 or 2), got {opts.numLights}")
-    if opts.aoIter < 0:
-        raise ValueError(f"aoIter must be >= 0, got {opts.aoIter}")
-    f32 = np.float32
-    p = RmclParams()
-    p.width, p.height = opts.resolution
-    p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
-    for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal",
-              "reflectIter"):
-        setattr(p, k, getattr(opts, k))
-    p.tableLen = opts.mcTableLength
-    if accel is not None:
-        p.edge, p.brickShift = accel.edge, accel.edge.bit_length() - 1
-        p.nbx, p.nby, _ = brick_dims(opts.voxelRes, accel.edge)
-        p.rowWords = row_words(accel.edge)
-    p.aoSteps = opts.maxVoxelIter // 2
-    p.pixLo, p.pixCount = pixel_range(opts, pix_lo, pix_count)
-    p.marchScale = float(f32(1.0 / (opts.maxVoxelIter * 0.5)))
-    p.aoScale = float(f32(1.0 / (p.aoSteps * 0.5)))
-    f_min = min(a * b for a, b in zip(opts.invVoxelScale, opts.voxelBounds2))
-    p.shadowBaseStep = float(f32((2.0 / opts.maxVoxelIter) * f_min))
-    p.invNumLights = float(f32(1.0) / f32(opts.numLights))
-    p.voxelSize = float(f32(opts.voxelSize))
-    for dst, src in (("bmin", opts.voxelBoundsMin), ("bmax", opts.voxelBoundsMax),
-                     ("vb", opts.voxelBounds), ("vb2", opts.voxelBounds2),
-                     ("invS", opts.invVoxelScale), ("eyePos", opts.eyePos),
-                     ("targetPos", opts.targetPos), ("up", opts.up),
-                     ("sky1", opts.skyColor1), ("sky2", opts.skyColor2)):
-        getattr(p, dst)[:] = [float(v) for v in np.asarray(src, np.float32)]
-    for k in ("invAspect", "fov", "maxDist", "startDist", "eps", "aoAmp",
-              "groundY", "shadowBias", "lightScatter", "minLightAtt", "exposure",
-              "dof", "frameBlend", "fogPow", "flareAmp", "gamma"):
-        setattr(p, k, float(getattr(opts, k)))
-    for dst, src in (("lightPos", opts.lightPos), ("lightColor", opts.lightColor),
-                     ("matAlbedo", opts.mat_albedo)):
-        rows = src.numpy()
-        for r in range(4):
-            getattr(p, dst)[r][:] = [float(v) for v in rows[r]]
-    sx, sy, p.viewHalf = view_scales(opts)
-    p.viewScale[:] = [sx, sy]
-    p.matR0[:] = [float(v) for v in opts.mat_r0.numpy()]
-    p.matSmooth[:] = [float(v) for v in opts.mat_smoothness.numpy()]
-    return p
+    pix_count)` gives. The part that the options' static fields and the
+    brick edge fix is built once (`PLAN_BUILDS`, then `PLAN_HITS`); a call
+    copies the dynamic fields' floats over it."""
+    return _plan(opts, accel).params(opts, pix_lo, pix_count)
 
 
 def pixel_range(opts, pix_lo: int = 0, pix_count: int | None = None) -> tuple:
@@ -142,9 +200,12 @@ def pixel_range(opts, pix_lo: int = 0, pix_count: int | None = None) -> tuple:
 
 def pass_times(times) -> torch.Tensor:
     """Each pass's time as the float32 value `opts.replace(time=t)` gives
-    it: a (P,) float32 CPU tensor."""
+    it: a (P,) float32 CPU tensor (`times` itself where it is one)."""
     if isinstance(times, torch.Tensor):
-        return times.detach().to("cpu", torch.float32).reshape(-1)
+        if (times.dtype == torch.float32 and times.device.type == "cpu" and times.dim() == 1
+                and times.is_contiguous() and not times.requires_grad):
+            return times
+        return times.detach().to("cpu", torch.float32).reshape(-1).contiguous()
     return torch.tensor([np.float32(t) for t in times], dtype=torch.float32)
 
 
@@ -153,12 +214,50 @@ def launch_block(opts, times: torch.Tensor) -> torch.Tensor:
     pass's time (`pass_times`), then per AO probe i <= aoIter its distance
     shade.ao_step_dist (float32), then its sample cap shade.ao_trunc_steps
     (int32). An int32 CPU tensor holding the bits."""
+    return _int32(_block_bytes(_ao_probes(opts), times))
+
+
+def _ao_probes(opts) -> bytes:
     steps = opts.maxVoxelIter // 2
     probes = range(opts.aoIter + 1)
     dist = np.array([ao_step_dist(opts, i) for i in probes], np.float32)
     cap = np.array([ao_trunc_steps(opts, steps, i) for i in probes], np.int32)
-    return torch.from_numpy(np.concatenate([times.numpy().view(np.int32), dist.view(np.int32),
-                                            cap]))
+    return dist.tobytes() + cap.tobytes()
+
+
+def _block_bytes(ao: bytes, times: torch.Tensor) -> bytes:
+    # times is pass_times': a contiguous float32 CPU tensor, read raw (no
+    # tensor op)
+    return ctypes.string_at(times.data_ptr(), times.nbytes) + ao
+
+
+def _int32(block: bytes) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(block, np.int32).copy())
+
+
+def _cached(cache, key, make):
+    """cache[key], made by `make` where it is missing. The cache starts
+    afresh past _CACHED entries: a dropped card buffer's memory goes back
+    to its stream's pool, behind the launches queued on that stream."""
+    value = cache.get(key)
+    if value is None:
+        if len(cache) >= _CACHED:
+            cache.clear()
+        value = cache[key] = make()
+    return value
+
+
+def _device_block(block: bytes, device, stream) -> torch.Tensor:
+    """launch_block's bytes on the card, uploaded once per device, stream
+    and bytes (`BLOCK_UPLOADS`): a buffer is never written again, so a
+    queued launch that reads it sees what it was launched with."""
+    def upload():
+        global BLOCK_UPLOADS
+        BLOCK_UPLOADS += 1
+        # pinned and non-blocking: a pageable copy would wait for the stream
+        return _int32(block).pin_memory().to(device, non_blocking=True)
+
+    return _cached(_BLOCKS, (device, stream, block), upload)
 
 
 def render_pass_plain(vol, opts, table, accum, accel: Accel | None = None,
@@ -218,16 +317,18 @@ def _launch(vol, opts, tables, times, accum, accel, counts, argb=None, pix_lo=0,
         raise ValueError("table must be 16-byte aligned (float4 loads)")
     global LAUNCHES, PACKS, REFLECTIVE_LAUNCHES
     with span("rmcl.k2.params"):
-        params = make_params(opts, accel, pix_lo, pix_count)
+        plan = _plan(opts, accel)
+        params = plan.params(opts, pix_lo, pix_count)
     with span("rmcl.k2.block"):
-        # pinned and non-blocking: a pageable copy would wait for the stream
-        block_d = launch_block(opts, times).pin_memory().to(accum.device, non_blocking=True)
-        next_tile = torch.zeros(1, dtype=torch.int32, device=accum.device)
+        dev = accum.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        block_d = _device_block(_block_bytes(plan.ao, times), dev, stream)
+        next_tile = _cached(_NEXT_TILE, (dev, stream),
+                             lambda: torch.empty(1, dtype=torch.int32, device=dev))
     rows = None if accel is None else accel.rows.data_ptr()
     with span("rmcl.k2.launch"):
         lib = build.library()
-        with torch.cuda.device(accum.device):
-            stream = torch.cuda.current_stream().cuda_stream
+        with torch.cuda.device(dev):
             rc = lib.rmcl_render_passes(ctypes.byref(params), vol.data_ptr(), tables.data_ptr(),
                                         block_d.data_ptr(), tables.shape[0], rows,
                                         accum.data_ptr(),

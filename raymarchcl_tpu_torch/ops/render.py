@@ -14,6 +14,8 @@ frameBlend = 1/iter from a zeroed buffer, not an arithmetic mean.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,6 +28,33 @@ from .kernels.tonemap import tonemap  # noqa: F401  (re-export)
 # animation's update path (core.clj:116).
 TIME_STEP_INIT = 0.333
 TIME_STEP_ANIM = 0.3333
+
+
+@functools.cache
+def default_times(n_passes: int) -> torch.Tensor:
+    """The still path's pass times, p * TIME_STEP_INIT for pass p: one
+    (P,) float32 CPU tensor per pass count, shared by every frame (the
+    renderers only read it)."""
+    return torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
+
+
+def host_image(opts, argb):
+    """The frame's first N packed pixels of argb as the (H, W) uint32 host
+    image, in memory of its own. From a card: one non-blocking copy into
+    pinned memory (PyTorch's caching host allocator hands back the pages
+    of images already dropped) and a wait for it."""
+    with span("rmcl.readback"):
+        w, h = opts.resolution
+        if argb.shape[0] != opts.num_pixels:
+            argb = argb[: opts.num_pixels]
+        if argb.device.type == "cuda":
+            host = torch.empty(argb.shape, dtype=argb.dtype, pin_memory=True)
+            host.copy_(argb, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(argb.device))
+            done.synchronize()
+            argb = host
+        return argb.numpy().view(np.uint32).reshape(h, w)
 
 
 def render_accum(vol, opts, mc_tables, times, accum, accel=None):
@@ -51,11 +80,9 @@ def render_image(vol, opts, mc_tables, times=None, accum=None, accel=None):
     with span("rmcl.render_image"):
         n_passes = mc_tables.shape[0]
         if times is None:
-            times = torch.arange(n_passes, dtype=torch.float32) * TIME_STEP_INIT
+            times = default_times(n_passes)
         if accum is None:
             accum = torch.zeros((opts.num_pixels, 3), dtype=torch.float32, device=vol.device)
         argb = torch.empty(opts.num_pixels, dtype=torch.int32, device=accum.device)
         render_passes(vol, opts, mc_tables, times, accum, accel, argb)
-        with span("rmcl.readback"):
-            w, h = opts.resolution
-            return argb.cpu().numpy().view(np.uint32).reshape(h, w), accum
+        return host_image(opts, argb), accum

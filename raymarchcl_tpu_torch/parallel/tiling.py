@@ -222,9 +222,7 @@ def _band_ms(marks) -> list:
 
 
 def _times(times, n_passes):
-    if times is None:
-        return torch.arange(n_passes, dtype=torch.float32) * render_mod.TIME_STEP_INIT
-    return times
+    return render_mod.default_times(n_passes) if times is None else times
 
 
 def _start_accum(accum, rows, home):
@@ -235,12 +233,6 @@ def _start_accum(accum, rows, home):
         raise ValueError(f"accum must be ({rows}, 3) (the padded frame of this mesh), got "
                          f"{tuple(accum.shape)}")
     return accum
-
-
-def _host_image(opts, argb):
-    with span("rmcl.readback"):
-        w, h = opts.resolution
-        return argb[: opts.num_pixels].cpu().numpy().view(np.uint32).reshape(h, w)
 
 
 def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, accel=None):
@@ -300,7 +292,7 @@ def render_image_tiled(vol, opts, mc_tables, times=None, accum=None, mesh=None, 
                 (lo, hi, *_), = staged
                 accum = distributed.all_gather_rows(accum[lo:hi])
                 argb = distributed.all_gather_rows(argb[lo:hi])
-        image = _host_image(opts, argb)
+        image = render_mod.host_image(opts, argb)
         if timed:  # the readback waited for every band's copy, so for its launch
             bands.record(off, _band_ms(marks))
         return image, accum
@@ -353,7 +345,7 @@ def _pass_sharded(vol, opts, mc_tables, times, accum, mesh, accel):
         with span("rmcl.tiling.gather"):
             distributed.all_reduce_sum(total)
     total += accum * weight(n_passes)
-    return _host_image(opts, render_mod.pack_argb(opts, total)), total
+    return render_mod.host_image(opts, render_mod.pack_argb(opts, total)), total
 
 
 def render_image_spp_sharded(vol, opts, mc_tables, times=None, accum=None, mesh=None,

@@ -617,3 +617,81 @@ def test_runtime_card_finds_the_card_by_uuid(cuda_device):
     assert f"GPU-{uuid}" in smi
     line = runtime.card(cuda_device)
     assert line in runtime.card().splitlines() and line.endswith(" W")
+
+
+def _forget_launch_state():
+    """Drop what the launches keep across frames, as a new process has
+    none of it."""
+    for cache in (k2._PLANS, k2._BLOCKS, k2._NEXT_TILE):
+        cache.clear()
+
+
+@pytest.mark.cuda
+def test_launch_state_leaks_nothing_between_frames(cuda_device):
+    """ao, then metal, then ao again, at other pass counts, poses and pixel
+    ranges: each frame bit-equal, accum and image, to the same frame in
+    the reverse order. The image a frame returned stays as it was after
+    the later frames (no host buffer is written twice), and a still
+    rendered again builds no parameter block's static part and copies no
+    block to the card."""
+    ao = _gyroid_case(cuda_device, 64, 48, 3, "ao")
+    metal = _gyroid_case(cuda_device, 64, 48, 3, "metal")
+
+    def whole(case, passes, eye):
+        opts, vol, tables, times, bricks = case
+        return render.render_image(vol, opts.replace(eyePos=eye), tables[:passes],
+                                   times[:passes], accel=bricks)
+
+    def band(case, passes, lo, count):
+        opts, vol, tables, times, bricks = case
+        acc = torch.zeros((count, 3), device=cuda_device)
+        argb = torch.empty(count, dtype=torch.int32, device=cuda_device)
+        k2.render_passes(vol, opts, tables[:passes], times[:passes], acc, bricks, argb,
+                         pix_lo=lo, pix_count=count)
+        return argb.cpu().numpy(), acc
+
+    frames = [lambda: whole(ao, 2, compute_eyepos(135, 2.25, 0.35)),
+              lambda: band(metal, 1, 2500, 600),  # ends in 28 pad rows
+              lambda: whole(ao, 3, compute_eyepos(60, 2.0, 0.5)),
+              lambda: band(ao, 2, 100, 1234)]
+    forward = [frames[0]()]
+    first = forward[0][0].copy()
+    forward += [f() for f in frames[1:]]
+    np.testing.assert_array_equal(forward[0][0], first)
+    assert not np.shares_memory(forward[0][0], forward[2][0])
+    backward = [f() for f in reversed(frames)][::-1]
+    for (img_f, acc_f), (img_b, acc_b) in zip(forward, backward):
+        np.testing.assert_array_equal(img_f, img_b)
+        assert torch.equal(acc_f, acc_b)
+    builds, hits, uploads = k2.PLAN_BUILDS, k2.PLAN_HITS, k2.BLOCK_UPLOADS
+    img, _ = frames[0]()
+    assert (k2.PLAN_BUILDS, k2.PLAN_HITS, k2.BLOCK_UPLOADS) == (builds, hits + 1, uploads)
+    np.testing.assert_array_equal(img, first)
+    np.testing.assert_array_equal(forward[0][0], first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["ao", "metal"])
+def test_sharded_entries_equal_one_card(cuda_device, mat):
+    """The tiled frame (3 bands, 3 pixel ranges) equals one card's bit for
+    bit; the pass-sharded one (2 shards, other pass times each) equals it
+    to float32 reassociation, and is bit-equal to itself rendered from a
+    fresh launch state."""
+    opts, vol, tables, times, bricks = _gyroid_case(cuda_device, 100, 37, 4, mat)
+    n = opts.num_pixels
+    argb_1, acc_1 = render.render_image(vol, opts, tables, times, accel=bricks)
+    argb_t, acc_t = tiling.render_image_tiled(vol, opts, tables, times, accel=bricks,
+                                              mesh=tiling.make_mesh([cuda_device] * 3))
+    np.testing.assert_array_equal(argb_t, argb_1)
+    assert torch.equal(acc_t[:n], acc_1)
+    mesh = tiling.make_mesh([cuda_device] * 2)
+    argb_s, acc_s = tiling.render_image_spp_sharded(vol, opts, tables, times, mesh=mesh,
+                                                    accel=bricks)
+    np.testing.assert_allclose(acc_s[:n].cpu().numpy(), acc_1.cpu().numpy(), rtol=2e-5,
+                               atol=1e-6)
+    assert (argb_s != argb_1).mean() < 0.01
+    _forget_launch_state()
+    argb_f, acc_f = tiling.render_image_spp_sharded(vol, opts, tables, times, mesh=mesh,
+                                                    accel=bricks)
+    np.testing.assert_array_equal(argb_f, argb_s)
+    assert torch.equal(acc_f, acc_s)

@@ -18,10 +18,11 @@ import torch
 from raymarchcl_tpu.ops import render as j_render
 from raymarchcl_tpu.ops.kernels.tonemap_pallas import tonemap_pack_pallas
 from raymarchcl_tpu.options import render_options as j_render_options
+from raymarchcl_tpu_torch import materials
 from raymarchcl_tpu_torch.models import generators
-from raymarchcl_tpu_torch.ops import accel, sampling
+from raymarchcl_tpu_torch.ops import accel, render, sampling
 from raymarchcl_tpu_torch.ops import shade
-from raymarchcl_tpu_torch.ops.camera import compute_eyepos
+from raymarchcl_tpu_torch.ops.camera import compute_eyepos, view_scales
 from raymarchcl_tpu_torch.ops.kernels import build
 from raymarchcl_tpu_torch.ops.kernels import render_pass as k2
 from raymarchcl_tpu_torch.ops.kernels import tonemap as k1
@@ -179,6 +180,133 @@ def test_params_values(small_scene):
         k2.make_params(opts.replace(numLights=5))
     with pytest.raises(ValueError, match="aoIter"):
         k2.make_params(opts.replace(aoIter=-1))
+    with pytest.raises(ValueError, match="mat_r0"):  # the block's floats are copied raw
+        k2.make_params(opts.replace(mat_r0=torch.zeros(3)))
+    with pytest.raises(ValueError, match="lightPos"):
+        k2.make_params(opts.replace(lightPos=opts.lightPos.t()))
+
+
+def _params_field_by_field(opts, bricks=None, pix_lo=0, pix_count=None):
+    """The parameter block built field by field from the options, as each
+    launch built it before its static part was kept across frames: the
+    oracle of make_params' bytes."""
+    f32 = np.float32
+    p = k2.RmclParams()
+    p.width, p.height = opts.resolution
+    p.rx, p.ry, p.rz, p.rxy = opts.voxelRes
+    for k in ("maxIter", "maxVoxelIter", "shadowIter", "aoIter", "numLights", "isoVal",
+              "reflectIter"):
+        setattr(p, k, getattr(opts, k))
+    p.tableLen = opts.mcTableLength
+    if bricks is not None:
+        p.edge, p.brickShift = bricks.edge, bricks.edge.bit_length() - 1
+        p.nbx, p.nby, _ = accel.brick_dims(opts.voxelRes, bricks.edge)
+        p.rowWords = accel.row_words(bricks.edge)
+    p.aoSteps = opts.maxVoxelIter // 2
+    p.pixLo, p.pixCount = k2.pixel_range(opts, pix_lo, pix_count)
+    p.marchScale = float(f32(1.0 / (opts.maxVoxelIter * 0.5)))
+    p.aoScale = float(f32(1.0 / (p.aoSteps * 0.5)))
+    f_min = min(a * b for a, b in zip(opts.invVoxelScale, opts.voxelBounds2))
+    p.shadowBaseStep = float(f32((2.0 / opts.maxVoxelIter) * f_min))
+    p.invNumLights = float(f32(1.0) / f32(opts.numLights))
+    p.voxelSize = float(f32(opts.voxelSize))
+    for dst, src in (("bmin", opts.voxelBoundsMin), ("bmax", opts.voxelBoundsMax),
+                     ("vb", opts.voxelBounds), ("vb2", opts.voxelBounds2),
+                     ("invS", opts.invVoxelScale), ("eyePos", opts.eyePos),
+                     ("targetPos", opts.targetPos), ("up", opts.up),
+                     ("sky1", opts.skyColor1), ("sky2", opts.skyColor2)):
+        getattr(p, dst)[:] = [float(v) for v in np.asarray(src, np.float32)]
+    for k in ("invAspect", "fov", "maxDist", "startDist", "eps", "aoAmp",
+              "groundY", "shadowBias", "lightScatter", "minLightAtt", "exposure",
+              "dof", "frameBlend", "fogPow", "flareAmp", "gamma"):
+        setattr(p, k, float(getattr(opts, k)))
+    for dst, src in (("lightPos", opts.lightPos), ("lightColor", opts.lightColor),
+                     ("matAlbedo", opts.mat_albedo)):
+        rows = src.numpy()
+        for r in range(4):
+            getattr(p, dst)[r][:] = [float(v) for v in rows[r]]
+    sx, sy, p.viewHalf = view_scales(opts)
+    p.viewScale[:] = [sx, sy]
+    p.matR0[:] = [float(v) for v in opts.mat_r0.numpy()]
+    p.matSmooth[:] = [float(v) for v in opts.mat_smoothness.numpy()]
+    return bytes(p)
+
+
+def _scene_opts(mat="ao", eye=compute_eyepos(135, 2.25, 0.35), **kw):
+    """small_scene's options with another preset or eye, built afresh as a
+    frame builds them."""
+    return render_options(width=8, height=6, vres=[32, 32, 96], iter=2, mat=mat, eyepos=eye,
+                          targetpos=[0, -0.4, 0], maxIter=32, maxVoxelIter=64, shadowIter=32,
+                          **kw)
+
+
+def _bricks(edge):
+    return accel.build_accel(np.zeros(32 * 32 * 96, np.uint8), (32, 32, 96, 1024), 32,
+                             edge=edge)
+
+
+@pytest.mark.parametrize("edge", [None, 8, 16])
+@pytest.mark.parametrize("mat", [m for m in materials.PRESETS if not m.startswith(":")])
+def test_params_bytes_equal_field_by_field(mat, edge):
+    """make_params' block is byte-equal to the one built field by field,
+    for every preset, without and with a brick table, over the whole frame
+    and over a band's pixel range (ending in pad rows), at aoIter 0/5/16/20
+    and 1 or 2 lights."""
+    bricks = None if edge is None else _bricks(edge)
+    base = _scene_opts(mat)
+    n = base.num_pixels
+    for ao_iter in (0, 5, 16, 20):
+        for lights in (1, 2):
+            opts = base.replace(aoIter=ao_iter, numLights=lights)
+            for lo, count in ((0, None), (n // 3, n - n // 3 + 2)):
+                assert (bytes(k2.make_params(opts, bricks, lo, count))
+                        == _params_field_by_field(opts, bricks, lo, count))
+
+
+FIELD_CHANGES = {
+    "eyePos": {"eyePos": [0.25, 1.5, -2.0]},
+    "time": {"time": 7.0},  # goes beside the block: the bytes stay
+    "fov": {"fov": 1.1},
+    "exposure": {"exposure": 2.25},
+    "lightColor": {"lightColor": np.eye(4, dtype=np.float32) * 9},
+    "isoVal": {"isoVal": 40},
+    "resolution": {"resolution": (12, 5)},
+}
+
+
+@pytest.mark.parametrize("field", list(FIELD_CHANGES))
+def test_params_follow_a_changed_field(field):
+    """After a frame has built and kept its static part, a frame with one
+    field changed gets the bytes built field by field for it: no kept part
+    goes stale, whether the field is per-frame or static."""
+    bricks = _bricks(8)
+    base = _scene_opts("metal")
+    want_base = _params_field_by_field(base, bricks, 5, 30)
+    assert bytes(k2.make_params(base, bricks, 5, 30)) == want_base
+    changed = base.replace(**FIELD_CHANGES[field])
+    want = _params_field_by_field(changed, bricks, 5, 30)
+    assert bytes(k2.make_params(changed, bricks, 5, 30)) == want
+    assert (want == want_base) == (field == "time")
+    assert bytes(k2.make_params(base, bricks, 5, 30)) == want_base
+
+
+def test_plan_counters_engage(monkeypatch):
+    """Over a ring of 12 poses built afresh, the static part is built once
+    and reused 11 times, and the block beside it holds the same bytes at
+    every pose; another preset builds a second one."""
+    monkeypatch.setattr(k2, "_PLANS", {})
+    builds, hits = k2.PLAN_BUILDS, k2.PLAN_HITS
+    times = k2.pass_times(render.default_times(16))
+    assert times is render.default_times(16)  # no copy per frame
+    blocks = set()
+    for i in range(12):
+        opts = _scene_opts(eye=compute_eyepos(30 * i, 2.25, 0.35))
+        assert bytes(k2.make_params(opts)) == _params_field_by_field(opts)
+        blocks.add(k2.launch_block(opts, times).numpy().tobytes())
+    assert (k2.PLAN_BUILDS - builds, k2.PLAN_HITS - hits) == (1, 11)
+    assert len(blocks) == 1
+    k2.make_params(_scene_opts("metal"))
+    assert (k2.PLAN_BUILDS - builds, k2.PLAN_HITS - hits) == (2, 11)
 
 
 @pytest.mark.parametrize("ao_iter", [0, 5, 16, 20])
