@@ -1,6 +1,8 @@
 """The system under test: a cell's set-up and its frame, through the
 port's entry points (raymarchcl_tpu_torch), by the name in the cell's
-traffic (`entry`).
+traffic (`entry`): one of `ENTRIES`, else the module
+`entrypoints/<entry>.py` of the cell's checkout, whose `make(scene)`
+returns the frame's call, opts -> (argb, accum), as `ENTRIES`' do.
 
 A frame is one call into the entry point, from a zeroed accum to the
 packed ARGB image as a host array, with its options built for its pose by
@@ -10,9 +12,12 @@ the port's `options.render_options` inside the frame.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 
-from . import inputs
+import torch
+
+from . import inputs, spec
 
 
 def _span(name, on):
@@ -35,7 +40,13 @@ class Scene:
         home = devices[0]
         self.cell, self.devices, self.traced = cell, devices, False
         vol_cfg = cfg["volume"]
-        self.vol = inputs.VOLUMES[vol_cfg["generator"]](vol_cfg["vres"], home)
+        make_volume = volume_source(vol_cfg, cell.root)
+        make_entry = entry_point(tr["entry"], cell.root)
+        self.vol = make_volume(home)
+        n = int(vol_cfg["vres"]) ** 3
+        if self.vol.dtype != torch.uint8 or tuple(self.vol.shape) != (n,):
+            raise ValueError(f"volume {vol_cfg['generator']!r} is {self.vol.dtype} "
+                             f"{tuple(self.vol.shape)}, not flat uint8 of vres^3 = {n}")
         self.tables = inputs.mc_tables(tr["spp"], seed, home)
         self.ring = inputs.camera_ring(tr["camera"], seed)
         cam = tr["camera"]
@@ -48,11 +59,9 @@ class Scene:
         t0 = time.perf_counter()
         self.accel = build_accel(self.vol, opts.voxelRes, opts.isoVal)
         if home.type == "cuda":
-            import torch
-
             torch.cuda.synchronize(home)
         self.accel_s = time.perf_counter() - t0
-        self.entry = ENTRIES[tr["entry"]](self)
+        self.entry = make_entry(self)
 
     def frame(self, eye):
         with _span("rmcl_bench.options", self.traced):
@@ -80,3 +89,21 @@ def _render_image_tiled(scene):
 
 
 ENTRIES = {"render_image": _render_image, "render_image_tiled": _render_image_tiled}
+
+
+def volume_source(vol_cfg: dict, root: str):
+    """The configuration's volume as f(device): a generator of
+    `inputs.VOLUMES` at the `volume` object's `vres`, else
+    `make(volume_cfg, device)` of `volumes/<generator>.py` of the checkout
+    `root`, given the whole object. Either returns the flat uint8 volume
+    (index z*rx*ry + y*rx + x); spec.UnknownName for a generator neither has."""
+    name = vol_cfg["generator"]
+    make = spec.load_named("volumes", name, root, inputs.VOLUMES)
+    return functools.partial(make, vol_cfg["vres"] if name in inputs.VOLUMES else vol_cfg)
+
+
+def entry_point(name: str, root: str):
+    """`ENTRIES[name]`, else `make` of `entrypoints/<name>.py` of the
+    checkout `root`: f(scene) -> the frame's call; spec.UnknownName for an
+    entry neither has."""
+    return spec.load_named("entrypoints", name, root, ENTRIES)

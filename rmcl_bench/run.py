@@ -16,8 +16,10 @@ read from its chrome trace (trace.py, metrics/).
 The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics`, `device` (and with `--trace 1`
 `breakdown`), then `checks`, each compared number beside its limit, which
-also end standard error. Without a card, with fewer cards than the cell
-asks for, or with JAX or the JAX package loaded once the window has
+also end standard error; set-up writes a line on the host's CPU there too.
+Without a card, with fewer cards than the cell asks for, with a volume
+generator or entry point that neither the harness nor the checkout's
+files define, or with JAX or the JAX package loaded once the window has
 closed, it exits non-zero and prints no result.
 """
 
@@ -57,6 +59,27 @@ def card_line() -> str:
         return smi.stdout.strip().replace("\n", "; ") or f"nvidia-smi rc {smi.returncode}"
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e.__class__.__name__})"
+
+
+def host_line() -> str:
+    """The host CPU's model (with its vendor, family, model and stepping,
+    which a virtual machine that hides the name still shows), logical
+    cores and current MHz (their mean over the cores) from /proc/cpuinfo:
+    paired runs on one machine read alike."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), []).append(value.strip())
+    except OSError as e:
+        return f"unavailable ({e.__class__.__name__})"
+    first = {k: v[0] for k, v in info.items()}
+    ident = " ".join(f"{k} {first[k]}" for k in ("cpu family", "model", "stepping") if k in first)
+    mhz = [float(v) for v in info.get("cpu MHz", [])]
+    return (f"{first.get('model name', 'unknown model')} ({first.get('vendor_id', '?')} {ident}), "
+            f"{len(info.get('processor', []))} logical cores, "
+            + (f"{sum(mhz) / len(mhz):.1f} MHz" if mhz else "MHz unknown"))
 
 
 def _devices(cell, device):
@@ -179,6 +202,7 @@ def run(workload, seed, seconds, trace, device=None, control=False, t_start=None
             torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - t_start
     log("set-up, s from the start: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    log(f"host: {host_line()}")
     before = _counters()
     trace_frames = int(cell.traffic["trace_frames"]) if trace else 0
     lat, window_s, kept, prof = window(scene, seconds, keep, seed, trace_frames)
@@ -241,7 +265,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     try:
         result = run(args.workload, args.seed, args.seconds, bool(args.trace))
-    except NoDevice as e:
+    except (NoDevice, spec.UnknownName) as e:
         print(f"rmcl_bench: {e}", file=sys.stderr)
         return 2
     loaded = forbidden_modules()

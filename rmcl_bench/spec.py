@@ -4,8 +4,12 @@ A cell `<config>.<traffic>` is an entry of BENCHMARK.json's `workloads`;
 its configuration is `configs/<config>.json`, its traffic
 `traffic/<traffic>.json`, what belongs to the pair alone (the check's
 sample and limits, the frozen work counts) `workloads/<cell>.json`, and
-each metric's reader `metrics/<metric>.py`. Adding a cell, a configuration
-or a metric adds files and entries; no file here changes.
+each metric's reader `metrics/<metric>.py`. A configuration's volume
+`generator` and a traffic mix's `entry` that the harness does not hold
+itself (`inputs.VOLUMES`, `entries.ENTRIES`) are the modules
+`volumes/<generator>.py` and `entrypoints/<entry>.py`. Adding a cell, a
+configuration, a volume source, an entry point or a metric adds files and
+entries; no file here changes.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ class Cell:
     data: dict
     end_to_end: tuple
     per_layer: tuple
+    root: str = ROOT
 
 
 def find_cell(name: str, root: str = ROOT) -> Cell:
@@ -55,16 +60,45 @@ def find_cell(name: str, root: str = ROOT) -> Cell:
                 traffic=_load_json(root, "traffic", f"{entry['traffic']}.json"),
                 data=_load_json(root, "workloads", f"{name}.json"),
                 end_to_end=tuple(m for m in bench["end_to_end"] if applies(m, name)),
-                per_layer=tuple(m for m in bench["per_layer"] if applies(m, name)))
+                per_layer=tuple(m for m in bench["per_layer"] if applies(m, name)),
+                root=root)
+
+
+class UnknownName(LookupError):
+    """A volume generator or entry point that neither the harness nor the
+    checkout's files define."""
+
+
+def _path(folder: str, name: str, root: str) -> str:
+    return os.path.join(root, os.path.basename(BENCH_DIR), folder, f"{name}.py")
+
+
+def _load_module(folder: str, name: str, root: str):
+    spec = importlib.util.spec_from_file_location(
+        f"rmcl_bench.{folder}." + name.replace(".", "_").replace("-", "_"),
+        _path(folder, name, root))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(metric: str, root: str = ROOT):
     """The module `metrics/<metric>.py` of the checkout `root`, which
     defines `read(ctx)`: the metric's value, or None where its run has
     nothing to read."""
-    path = os.path.join(root, os.path.basename(BENCH_DIR), "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(
-        "rmcl_bench.metrics." + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load_module("metrics", metric, root)
+
+
+def load_named(folder: str, name: str, root: str, builtin: dict):
+    """`builtin[name]`, else the `make` of the module `<folder>/<name>.py`
+    of the checkout `root`; UnknownName, listing the names known to both,
+    where neither has it."""
+    if name in builtin:
+        return builtin[name]
+    path = _path(folder, name, root)
+    if not os.path.isfile(path):
+        d = os.path.dirname(path)
+        files = [f[:-3] for f in (os.listdir(d) if os.path.isdir(d) else ()) if f.endswith(".py")]
+        raise UnknownName(f"{folder}: no {name!r}; known: "
+                          + ", ".join(sorted(builtin) + sorted(files)))
+    return _load_module(folder, name, root).make

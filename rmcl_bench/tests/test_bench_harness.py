@@ -4,6 +4,7 @@ the result line's keys; BENCHMARK.json against the benchmark's contract."""
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -16,7 +17,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from rmcl_bench import inputs, peaks, run, spec
+from rmcl_bench import entries, inputs, peaks, run, spec
 from rmcl_bench.trace import Trace, idle_by_place, render_kind
 
 BENCH, REPO = spec.BENCH_DIR, spec.ROOT
@@ -26,39 +27,135 @@ RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 # --- found by name -------------------------------------------------------------
 
+STILL4 = {"entry": "render_image", "width": 4, "height": 4, "spp": 1,
+          "camera": {"poses": 2, "dist": 2.25, "y": 0.35, "target": [0, -0.4, 0]},
+          "budgets": {}, "trace_frames": 1}
+# A volume source and an entry point that exist only as files of a checkout.
+BALL = """import torch
+
+
+def make(volume_cfg, device):
+    n, r = int(volume_cfg["vres"]), float(volume_cfg["radius"])
+    c = (torch.arange(n, device=device, dtype=torch.float32) + 0.5) / n - 0.5
+    d = (c[:, None, None] ** 2 + c[None, :, None] ** 2 + c[None, None, :] ** 2).sqrt()
+    return torch.where((d - r).abs() < 1.0 / n, 255, 0).to(torch.uint8).reshape(-1)
+"""
+WRAPPED = """from raymarchcl_tpu_torch.ops.render import render_image
+
+
+def make(scene):
+    return lambda opts: render_image(scene.vol, opts, scene.tables, accel=scene.accel)
+"""
+# The accepted cells' volumes and entry points, as the harness resolved them
+# before either could be a file.
+ACCEPTED = {"gyroid256-ao.still512": "_render_image",
+            "gyroid256-metal.still512": "_render_image",
+            "gyroid256-metal.showcase1024-x4": "_render_image_tiled",
+            "gyroid512-ao.still512": "_render_image"}
+
+
+def _drop(root, files=(), configs=(), traffic=(), cells=(), per_layer=()):
+    """New files under the checkout's rmcl_bench/ and new BENCHMARK.json
+    entries; a new cell also reports frame_ms. No file there is edited."""
+    bench_dir = os.path.join(root, "rmcl_bench")
+    for rel, text in files:
+        os.makedirs(os.path.dirname(os.path.join(bench_dir, rel)), exist_ok=True)
+        with open(os.path.join(bench_dir, rel), "x") as f:
+            f.write(text)
+    b = spec.load_benchmark(root)
+    for kind, items in (("configs", configs), ("traffic", traffic)):
+        for name, data in items:
+            with open(os.path.join(bench_dir, kind, f"{name}.json"), "x") as f:
+                json.dump(data, f)
+    for config, tr, check in cells:
+        name = f"{config}.{tr}"
+        with open(os.path.join(bench_dir, "workloads", f"{name}.json"), "x") as f:
+            json.dump({"check": check}, f)
+        b["workloads"].append({"name": name, "config": config, "traffic": tr, "chips": 1,
+                               "why": "test"})
+        next(m for m in b["end_to_end"] if m["name"] == "frame_ms")["workloads"].append(name)
+    b["per_layer"] += list(per_layer)
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(b, f)
+
 
 def test_dropped_files_are_found(tiny_root):
     """A new configuration, traffic mix, cell and per-layer metric: new files
     and new BENCHMARK.json entries, no other edit."""
-    bench_dir = os.path.join(tiny_root, "rmcl_bench")
-    for kind, name, data in (
-            ("configs", "tiny-metal2", {"volume": {"generator": "gyroid", "vres": 32},
-                                        "mat": "metal2", "options": {}, "reduced": []}),
-            ("traffic", "still4", {"entry": "render_image", "width": 4, "height": 4,
-                                   "spp": 1, "camera": {"poses": 2, "dist": 2.25, "y": 0.35,
-                                                        "target": [0, -0.4, 0]},
-                                   "budgets": {}, "trace_frames": 1}),
-            ("workloads", "tiny-metal2.still4",
-             {"check": {"frames": 1, "pixels": 4,
-                        "limits": {"accum_off_pct": 1.0, "image_off_pct": 1.0}}})):
-        with open(os.path.join(bench_dir, kind, f"{name}.json"), "w") as f:
-            json.dump(data, f)
-    with open(os.path.join(bench_dir, "metrics", "frame.count.py"), "w") as f:
-        f.write("def read(ctx):\n    return float(ctx['frames'])\n")
-    b = spec.load_benchmark(tiny_root)
-    b["workloads"].append({"name": "tiny-metal2.still4", "config": "tiny-metal2",
-                           "traffic": "still4", "chips": 1, "why": "test"})
-    b["per_layer"].append({"name": "frame.count", "unit": "frames", "better": "higher",
-                           "source": "host_clock", "layer": "entry", "moves": "frame_ms",
-                           "workloads": ["tiny-metal2.still4"]})
-    with open(os.path.join(tiny_root, "BENCHMARK.json"), "w") as f:
-        json.dump(b, f)
+    _drop(tiny_root, files=[("metrics/frame.count.py",
+                             "def read(ctx):\n    return float(ctx['frames'])\n")],
+          configs=[("tiny-metal2", {"volume": {"generator": "gyroid", "vres": 32},
+                                    "mat": "metal2", "options": {}, "reduced": []})],
+          traffic=[("still4", STILL4)],
+          cells=[("tiny-metal2", "still4",
+                  {"frames": 1, "pixels": 4,
+                   "limits": {"accum_off_pct": 1.0, "image_off_pct": 1.0}})],
+          per_layer=[{"name": "frame.count", "unit": "frames", "better": "higher",
+                      "source": "host_clock", "layer": "entry", "moves": "frame_ms",
+                      "workloads": ["tiny-metal2.still4"]}])
     cell = spec.find_cell("tiny-metal2.still4", tiny_root)
     assert cell.config["mat"] == "metal2" and cell.traffic["width"] == 4
     assert [m["name"] for m in cell.per_layer] == ["frame.count"]
     res = run.run("tiny-metal2.still4", 5, 0.0, True, device="cpu", root=tiny_root,
                   t_start=time.perf_counter(), log=lambda *a: None)
     assert res["correct"] and res["metrics"]["frame.count"]["value"] == 1.0
+
+
+def test_dropped_volume_source_and_entry_point_are_found(tiny_root):
+    """A volume source (`volumes/<generator>.py`, a thin 16^3 sphere with a
+    key of its own) and an entry point (`entrypoints/<entry>.py`, wrapping
+    render_image) that only the checkout's new files define run a cell end
+    to end, judged against the reference."""
+    _drop(tiny_root, files=[("volumes/ball.py", BALL),
+                            ("entrypoints/render_image_wrapped.py", WRAPPED)],
+          configs=[("ball16-ao", {"volume": {"generator": "ball", "vres": 16,
+                                             "radius": 0.3},
+                                  "mat": "ao", "options": {}, "reduced": []})],
+          traffic=[("wrapped4", dict(STILL4, entry="render_image_wrapped"))],
+          cells=[("ball16-ao", "wrapped4",
+                  {"frames": 2, "pixels": 16,
+                   "limits": {"accum_off_pct": 2.0, "image_off_pct": 1.0}})])
+    cell = spec.find_cell("ball16-ao.wrapped4", tiny_root)
+    assert cell.root == tiny_root
+    vol = entries.volume_source(cell.config["volume"], tiny_root)("cpu")
+    assert vol.dtype == torch.uint8 and vol.shape == (16**3,) and 0 < int(vol.count_nonzero())
+    res = run.run("ball16-ao.wrapped4", 2**31 + 16, 0.0, False, device="cpu",
+                  root=tiny_root, t_start=time.perf_counter(), log=lambda *a: None)
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
+    assert all(v["value"] == 0.0 for v in res["checks"].values())
+    assert set(res["metrics"]) == {"frame_ms", "setup_s"}
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED))
+def test_accepted_cells_resolve_as_before(name):
+    cell = spec.find_cell(name)
+    vol_cfg = cell.config["volume"]
+    make = entries.volume_source(vol_cfg, REPO)
+    assert make.func is inputs.gyroid_volume and make.args == (vol_cfg["vres"],)
+    assert entries.entry_point(cell.traffic["entry"], REPO) is getattr(entries, ACCEPTED[name])
+
+
+@pytest.mark.parametrize("kind", ["generator", "entry"])
+def test_unknown_name_fails_at_setup(tiny_root, monkeypatch, kind):
+    """An unknown volume generator or entry point stops the run before any
+    frame, naming the known ones, and the command prints no result."""
+    vol = {"generator": "nope" if kind == "generator" else "gyroid", "vres": 16}
+    _drop(tiny_root, configs=[("nope-ao", {"volume": vol, "mat": "ao", "options": {},
+                                           "reduced": []})],
+          traffic=[("nope4", dict(STILL4, entry="nope" if kind == "entry" else "render_image"))],
+          cells=[("nope-ao", "nope4", {"frames": 1, "pixels": 4,
+                                       "limits": {"accum_off_pct": 2.0, "image_off_pct": 1.0}})])
+    frames = []
+    monkeypatch.setattr(entries.Scene, "frame", lambda self, eye: frames.append(eye))
+    known = "gyroid" if kind == "generator" else "render_image, render_image_tiled"
+    with pytest.raises(spec.UnknownName, match=f"no 'nope'; known: {known}$"):
+        run.run("nope-ao.nope4", 1, 0.0, False, device="cpu", root=tiny_root,
+                t_start=time.perf_counter(), log=lambda *a: None)
+    assert frames == []
+    monkeypatch.setattr(run, "run", functools.partial(run.run, device="cpu", root=tiny_root,
+                                                      log=lambda *a: None))
+    rc, out = _main_with_argv(["--workload", "nope-ao.nope4", "--seed", "1", "--seconds", "0"])
+    assert rc != 0 and out == "" and frames == []
 
 
 def test_unknown_cell_is_refused(tiny_root):
@@ -199,10 +296,15 @@ def test_roofline_bounds():
 
 @pytest.mark.parametrize("trace", [0, 1])
 def test_result_keys(tiny_root, trace):
+    logged = []
     res = run.run("tiny-ao.still8", 2**31 + 3, 0.0, bool(trace), device="cpu",
-                  root=tiny_root, t_start=time.perf_counter(), log=lambda *a: None)
+                  root=tiny_root, t_start=time.perf_counter(), log=logged.append)
     want = RESULT_KEYS + (["breakdown"] if trace else []) + ["checks"]
     assert list(res) == want
+    # set-up names the host's CPU on stderr, before the window
+    host = [i for i, line in enumerate(logged) if line.startswith("host: ")]
+    assert len(host) == 1 and "logical cores" in logged[host[0]]
+    assert host[0] < next(i for i, line in enumerate(logged) if line.startswith("window: "))
     assert set(res["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     if trace:
         assert {"busy_s", "window_s"} <= set(res["device"])
@@ -213,12 +315,16 @@ def test_result_keys(tiny_root, trace):
         assert set(m) == {"value", "unit"}
 
 
-def _main_with(monkeypatch, result, argv=("--workload", "x", "--seed", "1", "--seconds", "1")):
-    monkeypatch.setattr(run, "run", lambda *a, **k: result)
+def _main_with_argv(argv):
     out = io.StringIO()
     with redirect_stdout(out):
         rc = run.main(list(argv))
     return rc, out.getvalue()
+
+
+def _main_with(monkeypatch, result, argv=("--workload", "x", "--seed", "1", "--seconds", "1")):
+    monkeypatch.setattr(run, "run", lambda *a, **k: result)
+    return _main_with_argv(argv)
 
 
 def test_main_prints_the_result_last(monkeypatch):
@@ -325,5 +431,6 @@ def test_benchmark_json_keeps_the_contract():
         cell = spec.find_cell(name)
         got = [m["name"] for m in cell.end_to_end]
         assert "setup_s" in got and len(got) >= 2 and cell.per_layer
-        assert cell.traffic["entry"] in ("render_image", "render_image_tiled")
+        entries.volume_source(cell.config["volume"], REPO)  # resolves, or UnknownName
+        entries.entry_point(cell.traffic["entry"], REPO)
         assert set(cell.data["check"]["limits"]) == {"accum_off_pct", "image_off_pct"}

@@ -1,9 +1,9 @@
 """Reduction of a torch.profiler chrome trace to per-frame numbers.
 
 The frames are the harness's `FRAME` annotations; the device's events are
-its kernels, copies and fills (on each card). The arithmetic of
-`idle_by_place` is that of raymarchcl_tpu_torch/scripts/profile_frame.py,
-copied here so that the yardstick does not move with the program.
+its kernels, copies and fills (on each card). The arithmetic here,
+`idle_by_place` with it, is the harness's own and shares no code with the
+program, so that the yardstick does not move with the program.
 Times in the trace are microseconds.
 """
 
