@@ -15,18 +15,41 @@ counter-based draws are indexed by.
 Orientation quirks preserved: `voxelize`/`voxelize_ks` write z-major
 (z*r^2 + y*r + x, meshvoxel.clj:57,68) but `voxelize_scatter` and
 `make_heatmap` write Y-major (y*r^2 + z*r + x, meshvoxel.clj:42,82).
+
+The STL read and the three voxelizers run in the spans `rmcl.mesh.read_stl`
+and `rmcl.mesh.voxelize`; `LAST_VOXELIZE` holds the last voxelization's
+counts.
 """
 
 from __future__ import annotations
 
+import functools
 import struct as _struct
+import time
 
 import numpy as np
+
+from ..utils.metrics import span
+
+# The last voxelization's host seconds (`read_stl`: the last STL read's;
+# `voxelize`), its vertices, its grid edge `res` and its voxels set
+# (`occupied`), replaced at each voxelization.
+LAST_VOXELIZE: dict = {}
+LAST_READ_S = 0.0  # the last read_stl's host seconds
 
 
 def read_stl(path) -> np.ndarray:
     """Binary or ASCII STL -> unique vertex array (V, 3) float32, sorted
     (the reference voxelizes mesh VERTICES only, meshvoxel.clj:31/51/65)."""
+    global LAST_READ_S
+    t0 = time.perf_counter()
+    with span("rmcl.mesh.read_stl"):
+        verts = _read_stl(path)
+    LAST_READ_S = time.perf_counter() - t0
+    return verts
+
+
+def _read_stl(path) -> np.ndarray:
     with open(path, "rb") as f:
         head = f.read(80)
         rest = f.read()
@@ -53,6 +76,25 @@ def read_stl(path) -> np.ndarray:
 load_mesh = read_stl  # reference name (meshvoxel.clj:12-14)
 
 
+def _counted(voxelizer):
+    """`voxelizer` in the span `rmcl.mesh.voxelize`, its counts put in
+    LAST_VOXELIZE."""
+
+    @functools.wraps(voxelizer)
+    def counted(vertices, res, *args, **kwargs):
+        t0 = time.perf_counter()
+        with span("rmcl.mesh.voxelize"):
+            vox = voxelizer(vertices, res, *args, **kwargs)
+        seconds = time.perf_counter() - t0
+        LAST_VOXELIZE.clear()
+        LAST_VOXELIZE.update({"seconds": {"read_stl": LAST_READ_S, "voxelize": seconds},
+                              "vertices": len(vertices), "res": int(res),
+                              "occupied": int(np.count_nonzero(vox))})
+        return vox
+
+    return counted
+
+
 def _scale_params(vertices: np.ndarray, res: int):
     """(off, pmin, scale) of the fit-to-grid transform
     (meshvoxel.clj:16-23): v -> off + (v - pmin) * scale, in float64."""
@@ -70,6 +112,7 @@ def mesh_scale(vertices: np.ndarray, res: int):
     return lambda v: off + (np.asarray(v, np.float64) - p) * s
 
 
+@_counted
 def voxelize(vertices, res) -> np.ndarray:
     """Point-stamp voxelizer (meshvoxel.clj:60-69): one voxel of 255 per
     in-bounds vertex, z-major index."""
@@ -80,6 +123,7 @@ def voxelize(vertices, res) -> np.ndarray:
     return vox
 
 
+@_counted
 def voxelize_ks(vertices, res, ks) -> np.ndarray:
     """Kernel-size dilation voxelizer (meshvoxel.clj:45-58): a clipped
     (2ks+1)^3 cube of 255 around each vertex, z-major index."""
@@ -114,6 +158,7 @@ def _scatter_draws(seed: int, nv: int) -> np.ndarray:
     return (u >> np.uint64(11)).astype(np.float64) * (1.0 / 9007199254740992.0)
 
 
+@_counted
 def voxelize_scatter(vertices, res, seed=0) -> np.ndarray:
     """Randomized scatter/streak voxelizer (meshvoxel.clj:25-43). Per
     vertex: with p=0.25 stamp up to 4 extra displaced copies, each shifted

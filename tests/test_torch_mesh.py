@@ -4,11 +4,13 @@ the heatmap volumes. The JAX functions take their native C++ path when
 its library loads and numpy otherwise; the port's numpy must equal
 whichever they take."""
 
+import hashlib
 import os
 import struct
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from raymarchcl_tpu.io import voxio as j_voxio
@@ -98,6 +100,49 @@ def test_voxelizers_byte_equal(trefoil, mode, res):
     assert got.dtype == np.uint8 and got.shape == (res**3,)
     assert (got > 0).sum() > 0
     np.testing.assert_array_equal(got, want)
+
+
+# BASELINE config 3's volume (chip_smoke.py's MESH_VOLUMES, the JAX
+# package's): occupied voxels and sha256
+KS64 = (38673, "99eb9c1d21074f34c11c0e5ce50cbcc13462df34dcd5f4f108fea56db5fe41ce")
+
+
+def _mesh_spans(prof):
+    return [e.name for e in prof.function_events if e.name.startswith("rmcl.")]
+
+
+def test_mesh_spans_under_a_profiler(trefoil):
+    """Under the CPU profiler without Kineto (as test_torch_accel_counters
+    does): the STL read and each voxelizer open their span, and the bytes
+    are those of the untraced calls and of the JAX package."""
+    untraced = (tm.voxelize_ks(trefoil, 64, 1), tm.voxelize(trefoil, 32),
+                tm.voxelize_scatter(trefoil, 32, seed=3))
+    with torch.autograd.profiler.profile(use_kineto=False) as prof:
+        verts = tm.read_stl(TREFOIL)
+        traced = (tm.voxelize_ks(verts, 64, 1), tm.voxelize(verts, 32),
+                  tm.voxelize_scatter(verts, 32, seed=3))
+    assert _mesh_spans(prof) == ["rmcl.mesh.read_stl"] + ["rmcl.mesh.voxelize"] * 3
+    np.testing.assert_array_equal(verts, trefoil)
+    for got, want in zip(traced, untraced):
+        np.testing.assert_array_equal(got, want)
+    assert (np.count_nonzero(traced[0]), hashlib.sha256(traced[0].tobytes()).hexdigest()) == KS64
+    np.testing.assert_array_equal(traced[0], jm.voxelize_ks(trefoil, 64, 1))
+
+
+def test_last_voxelize_is_replaced_at_each_voxelization(trefoil):
+    verts = tm.read_stl(TREFOIL)
+    vox = tm.voxelize_ks(verts, 64, 1)
+    last = tm.LAST_VOXELIZE
+    assert set(last["seconds"]) == {"read_stl", "voxelize"}
+    assert last["seconds"]["read_stl"] == tm.LAST_READ_S > 0.0
+    assert last["seconds"]["voxelize"] > 0.0
+    assert (last["vertices"], last["res"], last["occupied"]) == (18000, 64, KS64[0])
+    assert last["occupied"] == np.count_nonzero(vox)
+    vox = tm.voxelize_scatter(trefoil[:500], 32, seed=3)
+    last = tm.LAST_VOXELIZE
+    assert last["seconds"]["read_stl"] == tm.LAST_READ_S and last["seconds"]["voxelize"] > 0.0
+    assert (last["vertices"], last["res"]) == (500, 32)  # replaced, not added to
+    assert last["occupied"] == np.count_nonzero(vox) > 0
 
 
 def test_voxelize_scatter_seeds_differ(trefoil):
